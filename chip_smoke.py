@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-It drives the port's flagging service (``rfi_toolbox_tpu_torch``) on the
-card and fails (non-zero exit) if any phase fails:
+It drives the port's flagging service and its training main path
+(``rfi_toolbox_tpu_torch``) on the card and fails (non-zero exit) if any
+phase fails:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: one nvcc call builds the CUDA kernels into build/torch_kernels/;
+2. build: one nvcc per source, all started together, and one link build
+   the CUDA kernels into build/torch_kernels/;
 3. K4 (fused_extract_channels) against its plain PyTorch version on the
    card: 512 complex64 128x128 patches cut from 8 waterfalls of 1024 x
    1024, an odd N, a constant patch and real float32 input, max abs diff
@@ -21,7 +23,31 @@ card and fails (non-zero exit) if any phase fails:
    launches, waterfalls/s; the card's logits against the same predictor on the CPU
    (TF32 off) on 8 patches;
 6. the MAD path, flag_waterfalls(method="mad", sigma=5): IoU (> 0.5), K5
-   launches, waterfalls/s.
+   launches, waterfalls/s;
+7. K2 (fused_extract_channel_planes), K1 (fused_gather_extract) and K3
+   (fused_plane_gather_transform) against their plain versions on the
+   512 base patches of 8 generated 1024 x 1024 waterfalls and the
+   K=1920 indices of a real static selection (repeats, all four
+   variants), plus an odd K, a constant patch and real float32 input
+   (the patches' amplitudes): K1 and K2 within 2e-5, K3 bit-equal; time
+   per call and bound;
+8. static prep, Preprocessor.create_dataset(static_num_patches=1920), on
+   the 'auto' route (K1) and the 'planes' route (K2 + K3), and with MAD
+   flags (K5), then on real input (the waterfalls' amplitudes) on both
+   routes and on the materialised path (num_patches=1920, K4), each
+   against use_kernels=False on the card: the same selection, labels
+   bit-equal, images within 2e-5;
+9. the training main path at full width: the port's generator (bench.py's
+   event mix) -> static prep (K=1920, default route) -> UNet(32,
+   norm="batch") in bfloat16 trained for 15 steps of 128 per iteration;
+   patches/s of the loop (median and spread of 3 windows), train-only
+   patches/s and TFLOP/s against the bf16 peak, K1 launches (one per
+   iteration), every loss finite and falling; and two float32 steps
+   (TF32 off) on 8 images each on the card and on the CPU from the same
+   seeded weights: both losses within 1e-4 relative, the card's first
+   gradient at most twice as far from a float64 CPU gradient as the
+   CPU's float32 one, and the optimiser on the card, fed the CPU's
+   gradients, within 1e-3 * lr of the CPU's parameters.
 
 Waterfalls/s is timed on the host clock over 3 windows of at least
 ``WINDOW_S`` seconds each (calls queued back to back, one synchronize at
@@ -34,9 +60,10 @@ launch counts are set to 0 just before each path's run and read just
 after it. The line before the last is one JSON object with each kernel's
 launches, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Budget: under
-3 minutes with the build.
+5 minutes with the build.
 """
 
+import copy
 import json
 import statistics
 import subprocess
@@ -63,6 +90,22 @@ K4_OPS_PER_PIXEL = 40  # |z|, log10, gradient, min/max, window, atan2, affine
 # and MAD take a few operations per pixel, so K5 is bound by its bytes):
 # 2 radix selects x 32 passes x (2 compares + 2 adds) per pixel
 K5_DESIGN_OPS_PER_PIXEL = 2 * 32 * 4
+# the training main path (bench.py:main)
+RFI_CONFIG = {
+    "narrowband_persistent": {"count": 20},
+    "broadband_persistent": {"count": 5},
+    "narrowband_bursty": {"count": 20},
+    "broadband_bursty": {"count": 5},
+    "frequency_sweep": {"count": 1},
+}
+K_STATIC = 1920  # static patches per iteration
+TRAIN_BATCH = 128
+STEPS = K_STATIC // TRAIN_BATCH
+EXTRACT_TOL = 2e-5
+F32_LOSS_RTOL = 1e-4  # card vs CPU, float32, TF32 off
+OPT_ATOL_LR = 1e-3  # optimiser on the card vs CPU, same gradients, in lr
+BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16
+PLANE_OPS_PER_PIXEL = 60  # |z|, log10, 3 gradients, min/max, windows, atan2, affines
 
 T_START = time.perf_counter()
 
@@ -149,8 +192,10 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from rfi_toolbox_tpu_torch import ops
     from rfi_toolbox_tpu_torch.evaluation import evaluate_segmentation
     from rfi_toolbox_tpu_torch.io import flag_waterfalls
+    from rfi_toolbox_tpu_torch.models import UNet
     from rfi_toolbox_tpu_torch.ops import (
         _lib,
         fused_extract_channels,
@@ -158,8 +203,13 @@ def main():
         mad_flag_patches,
         mad_flag_patches_plain,
     )
+    from rfi_toolbox_tpu_torch.preprocess import Preprocessor
     from rfi_toolbox_tpu_torch.preprocess import pipeline as P
+    from rfi_toolbox_tpu_torch.preprocess.static_prep import make_static_prep_fn
     from rfi_toolbox_tpu_torch.serving import CompiledPredictor
+    from rfi_toolbox_tpu_torch.synth import make_sample_generator
+    from rfi_toolbox_tpu_torch.train import bce_dice_loss, create_train_state, train_steps
+    from rfi_toolbox_tpu_torch.train.flops import unet_train_flops_analytic
     from rfi_toolbox_tpu_torch.utils import set_tf32
 
     phases = {}
@@ -311,9 +361,304 @@ def main():
     require(m["iou"] > 0.5, "MAD flags do not find the injected RFI")
     phases["mad"] = time.perf_counter() - t
 
+
+    # -- static-path data: the port's generator, bench.py's event mix ---------
+    t = time.perf_counter()
+    sample_fn = make_sample_generator(SIDE, SIDE, rfi_config=RFI_CONFIG,
+                                      num_polarizations=1)
+    twf, tmask, _ = sample_fn(N_WATERFALLS, torch.Generator(device=dev).manual_seed(SEED))
+    prep = make_static_prep_fn(PATCH, K_STATIC, return_patches=False)
+    b = prep.base(twf.reshape(-1, SIDE, SIDE), tmask.reshape(-1, SIDE, SIDE))
+    keep = P.static_select_from_has(b.has, K_STATIC,
+                                    torch.Generator(device=dev).manual_seed(0))
+    base_idx, variant, pidx = prep.indices(b, keep)
+    base = b.base.contiguous()  # (512, 128, 128) complex64
+    m_base = base.shape[0]
+    n_distinct = int(torch.unique(base_idx).numel())
+    n_distinct_grad = int(torch.unique(pidx * m_base + base_idx).numel())
+    variants = sorted(torch.unique(variant).tolist())
+    log(f"static selection: K={K_STATIC} of {int(b.has.numel())} virtual patches "
+        f"({int(b.has.sum())} flagged), {n_distinct} distinct base patches of "
+        f"{m_base}, variants {variants}")
+    require(variants == [0, 1, 2, 3] and n_distinct < K_STATIC,
+            "the selection lacks repeats or a variant")
+    phases["static data"] = time.perf_counter() - t
+
+    # -- K2, K1, K3 ----------------------------------------------------------
+    t = time.perf_counter()
+    px = PATCH * PATCH
+    const = torch.full((4, PATCH, PATCH), 2 + 1j, dtype=torch.complex64, device=dev)
+    real_base = base.abs()  # float32 amplitudes
+    k2_err = {}
+    for name, x in {f"M={m_base}": base, "constant": const,
+                    "real": real_base}.items():
+        got = ops.fused_extract_channel_planes(x)
+        want = ops.fused_extract_channel_planes_plain(x)
+        torch.cuda.synchronize()
+        require(all(bool(torch.isfinite(g).all()) for g in got), f"K2 {name}: non-finite")
+        k2_err[name] = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    planes = ops.fused_extract_channel_planes(base)
+    odd = slice(0, 37)
+    k1_cases = {
+        f"K={K_STATIC}": (base, base_idx, pidx),
+        "odd K=37": (base, base_idx[odd], pidx[odd]),
+        "constant": (const, torch.tensor([0, 3, 1, 2, 3], device=dev),
+                     torch.tensor([0, 1, 2, 0, 2], device=dev)),
+        "real": (real_base, base_idx, pidx),
+    }
+    k1_err = {}
+    for name, args in k1_cases.items():
+        got, want = ops.fused_gather_extract(*args), ops.fused_gather_extract_plain(*args)
+        torch.cuda.synchronize()
+        require(all(g.shape == w.shape for g, w in zip(got, want)), f"K1 {name}: shape")
+        k1_err[name] = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    k3_diff = {}
+    for name, idx in {f"K={K_STATIC}": slice(None), "odd K=37": odd}.items():
+        args = (planes, base_idx[idx], pidx[idx], variant[idx])
+        got = ops.fused_plane_gather_transform(*args)
+        want = ops.fused_plane_gather_transform_plain(*args)
+        torch.cuda.synchronize()
+        k3_diff[name] = sum(int((g != w).sum()) for g, w in zip(got, want))
+    log("K2 max|kernel-plain|: " + ", ".join(f"{k} {v:.2e}" for k, v in k2_err.items())
+        + "; K1: " + ", ".join(f"{k} {v:.2e}" for k, v in k1_err.items())
+        + f" (tol {EXTRACT_TOL:g}); K3 values differing: "
+        + ", ".join(f"{k} {v}" for k, v in k3_diff.items()) + " (must be 0)")
+    require(max(k2_err.values()) <= EXTRACT_TOL, "K2 disagrees with its plain version")
+    require(max(k1_err.values()) <= EXTRACT_TOL, "K1 disagrees with its plain version")
+    require(not any(k3_diff.values()), "K3 is not bit-equal to its plain version")
+
+    def bound(n_bytes, n_ops):
+        by_bytes = n_bytes / HBM_BYTES_PER_S
+        by_ops = n_ops / SCALAR_OPS_PER_S
+        return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+    static_kernels = {
+        "K2": (lambda: ops.fused_extract_channel_planes(base),
+               lambda: ops.fused_extract_channel_planes_plain(base),
+               bound(m_base * px * (8 + 5 * 4), m_base * px * PLANE_OPS_PER_PIXEL)),
+        "K1": (lambda: ops.fused_gather_extract(base, base_idx, pidx),
+               lambda: ops.fused_gather_extract_plain(base, base_idx, pidx),
+               bound(n_distinct * px * 8 + K_STATIC * (2 * 4 + 3 * 4 * px),
+                     K_STATIC * px * PLANE_OPS_PER_PIXEL)),
+        "K3": (lambda: ops.fused_plane_gather_transform(planes, base_idx, pidx, variant),
+               lambda: ops.fused_plane_gather_transform_plain(planes, base_idx, pidx, variant),
+               bound((n_distinct_grad + 2 * n_distinct) * px * 4
+                     + K_STATIC * (3 * 4 + 3 * 4 * px), 0)),
+    }
+    static_ms = {}
+    for name, (kernel, plain, (bound_ms, bound_by)) in static_kernels.items():
+        static_ms[name] = (cuda_ms(kernel), cuda_ms(plain, calls=10, windows=3),
+                           bound_ms, bound_by)
+        k_ms, p_ms, _, _ = static_ms[name]
+        log(f"{name} at M={m_base}, K={K_STATIC}, 128^2: kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{k_ms / bound_ms:.1f}x the bound")
+    phases["K1-K3"] = time.perf_counter() - t
+
+    # -- static prep through create_dataset ------------------------------------
+    t = time.perf_counter()
+
+    def reset_counts():
+        for fn in (ops.fused_gather_extract, ops.fused_extract_channel_planes,
+                   ops.fused_plane_gather_transform, fused_extract_channels,
+                   mad_flag_patches):
+            fn.launches = 0
+
+    def counts():
+        return {"K1": ops.fused_gather_extract.launches,
+                "K2": ops.fused_extract_channel_planes.launches,
+                "K3": ops.fused_plane_gather_transform.launches,
+                "K4": fused_extract_channels.launches,
+                "K5": mad_flag_patches.launches}
+
+    prep_launches = {}
+    twf_real = twf.abs()
+    static = dict(static_num_patches=K_STATIC)
+    routes = {"auto": dict(extract="auto", flags=tmask),
+              "planes": dict(extract="planes", flags=tmask),
+              "mad": dict(extract="auto", flags=None),
+              "real auto": dict(extract="auto", flags=tmask, data=twf_real),
+              "real planes": dict(extract="planes", flags=tmask, data=twf_real),
+              "real materialised": dict(flags=tmask, data=twf_real,
+                                        size=dict(num_patches=K_STATIC))}
+    for route, cfg in routes.items():
+        def run(use_kernels):
+            pre = Preprocessor(cfg.get("data", twf), flags=cfg["flags"])
+            ds = pre.create_dataset(patch_size=PATCH, seed=0,
+                                    extract=cfg.get("extract", "auto"),
+                                    use_custom_flags=cfg["flags"] is not None,
+                                    use_kernels=use_kernels,
+                                    **cfg.get("size", static))
+            return pre.keep, ds
+        run(True)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        keep_k, ds_k = run(True)
+        torch.cuda.synchronize()
+        prep_launches[route] = counts()
+        keep_p, ds_p = run(False)
+        torch.cuda.synchronize()
+        err = float((ds_k.images - ds_p.images).abs().max())
+        same_keep = bool(torch.equal(keep_k, keep_p))
+        same_labels = bool(torch.equal(ds_k.labels, ds_p.labels))
+        log(f"create_dataset route {route}: launches "
+            + ", ".join(f"{k} {v}" for k, v in prep_launches[route].items() if v)
+            + f"; images max|kernels-plain| {err:.2e}, labels equal {same_labels}, "
+            f"same keep {same_keep}, flagged share of labels "
+            f"{float(ds_k.labels.float().mean()):.4f}")
+        n_out = K_STATIC if "size" not in cfg else keep_k.numel()
+        require(ds_k.images.shape == (n_out, PATCH, PATCH, 3), f"{route}: image shape")
+        require(same_keep and same_labels and err <= EXTRACT_TOL,
+                f"create_dataset route {route}: kernels disagree with the plain path")
+    require(prep_launches["auto"]["K1"] == 1, "the 'auto' route did not launch K1")
+    require(prep_launches["planes"]["K2"] == 1 and prep_launches["planes"]["K3"] == 1,
+            "the 'planes' route did not launch K2 and K3")
+    require(prep_launches["mad"]["K5"] == 1, "flags_mode 'mad' did not launch K5")
+    require(prep_launches["real auto"]["K1"] == 1, "real input: 'auto' did not launch K1")
+    require(prep_launches["real planes"]["K2"] == 1
+            and prep_launches["real planes"]["K3"] == 1,
+            "real input: 'planes' did not launch K2 and K3")
+    require(prep_launches["real materialised"]["K4"] == 1,
+            "real input: the materialised path did not launch K4")
+    phases["static prep"] = time.perf_counter() - t
+
+    # -- the training main path ----------------------------------------------------
+    t = time.perf_counter()
+    model = UNet(init_features=32, norm="batch", dtype=torch.bfloat16)
+    state = create_train_state(model, seed=1)
+
+    def dataset(i):
+        wf, mask, _ = sample_fn(N_WATERFALLS,
+                                torch.Generator(device=dev).manual_seed(SEED + i))
+        ds = Preprocessor(wf, flags=mask).create_dataset(
+            patch_size=PATCH, use_custom_flags=True, seed=0,
+            static_num_patches=K_STATIC)
+        return (ds.images.reshape(STEPS, TRAIN_BATCH, PATCH, PATCH, 3),
+                ds.labels.reshape(STEPS, TRAIN_BATCH, PATCH, PATCH))
+
+    def iteration(i):
+        return train_steps(state, *dataset(i))[1]
+
+    first = iteration(0)  # warm-up
+    first_loss = float(first.mean())
+    torch.cuda.synchronize()
+    log(f"train warm-up iteration: {time.perf_counter() - t:.1f} s, mean loss "
+        f"{first_loss:.4f}")
+    reset_counts()
+    rates, windows_losses, it = [], [], 1
+    for _ in range(WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        while time.perf_counter() - t0 < WINDOW_S:
+            losses.append(iteration(it))
+            it += 1
+        torch.cuda.synchronize()
+        rates.append(len(losses) * K_STATIC / (time.perf_counter() - t0))
+        windows_losses.append(torch.stack(losses).cpu())
+    iterations = sum(len(w) for w in windows_losses)
+    train_launches = counts()
+    per_iter = [float(x.mean()) for w in windows_losses for x in w]
+    last_loss = float(windows_losses[-1].mean())
+    rate = statistics.median(rates)
+    log(f"train loop on {kind}: patches/s {rate_text(rate, min(rates), max(rates))} "
+        f"({iterations} iterations of {K_STATIC}); K1 launches "
+        f"{train_launches['K1']} (K2 {train_launches['K2']}, K3 "
+        f"{train_launches['K3']}, K4 {train_launches['K4']})")
+    log("mean loss per iteration: " + " ".join(f"{x:.4f}" for x in per_iter))
+    require(all(bool(torch.isfinite(w).all()) for w in windows_losses),
+            "a training loss is not finite")
+    require(train_launches["K1"] == iterations,
+            "K1 did not run once per iteration of the training path")
+    require(last_loss < first_loss, "the loss did not fall over training")
+
+    images, labels = dataset(it)
+    train_ms = cuda_ms(lambda: train_steps(state, images, labels), calls=2, windows=3)
+    prep_ms = cuda_ms(lambda: dataset(it), calls=5, windows=3)
+    flops = unet_train_flops_analytic(TRAIN_BATCH) * STEPS
+    tflops = flops / (train_ms / 1e3) / 1e12
+    log(f"train only: {train_ms:.1f} ms per {STEPS} steps of {TRAIN_BATCH} "
+        f"({K_STATIC / (train_ms / 1e3):.1f} patches/s), {tflops:.1f} TFLOP/s "
+        f"({100 * tflops * 1e12 / BF16_PEAK_FLOPS:.1f}% of the {BF16_PEAK_FLOPS / 1e12:.0f} "
+        f"TFLOP/s bf16 peak; {flops / STEPS / 1e12:.3f} TFLOP per step); generation + "
+        f"static prep alone {prep_ms:.2f} ms per iteration; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    # two float32 steps (TF32 off) on the card and on the CPU from the same
+    # seeded weights and images. Float32 gradients of this network carry
+    # about 1e-3 relative error (BatchNorm's backward cancels), so the
+    # card's step-1 gradient is held to float64 as closely as the CPU's,
+    # and the optimiser on the card is fed the CPU's gradients.
+    def fresh(device=None):
+        return create_train_state(UNet(init_features=32, norm="batch"), seed=2,
+                                  device=device)
+
+    def recorded(state):
+        seen = []
+        apply = state.apply_gradients
+
+        def record(grads):
+            seen.append([g.detach().cpu() for g in grads])
+            apply(grads)
+        state.apply_gradients = record
+        return seen
+
+    def flat(tensors):
+        return torch.cat([t.detach().cpu().double().flatten() for t in tensors])
+
+    s_cpu, s_gpu, s_opt = fresh("cpu"), fresh(), fresh()
+    start = flat(s_cpu.params)
+    x, y = images[:2, :8], labels[:2, :8]
+    m64 = copy.deepcopy(s_cpu.model).double().train()
+    m64.dtype = torch.float64
+    loss64 = bce_dice_loss(m64(x[0].cpu().double().permute(0, 3, 1, 2))[:, 0], y[0].cpu())
+    g64 = flat(torch.autograd.grad(loss64, list(m64.parameters())))
+    g_cpu, g_gpu = recorded(s_cpu), recorded(s_gpu)
+    _, l_gpu = train_steps(s_gpu, x, y)
+    _, l_cpu = train_steps(s_cpu, x.cpu(), y.cpu())
+    for grads in g_cpu:
+        s_opt.apply_gradients([g.to(dev) for g in grads])
+    l_gpu, l_cpu = l_gpu.cpu().double(), l_cpu.double()
+    rel = float(((l_gpu - l_cpu).abs() / l_cpu.abs()).max())
+    err_cpu = float((flat(g_cpu[0]) - g64).norm() / g64.norm())
+    err_gpu = float((flat(g_gpu[0]) - g64).norm() / g64.norm())
+    lr = s_cpu.learning_rate
+    p_cpu = flat(s_cpu.params)
+    opt_diff = float((flat(s_opt.params) - p_cpu).abs().max()) / lr
+    path_agree = float((((flat(s_gpu.params) - start) - (p_cpu - start)).abs()
+                        <= OPT_ATOL_LR * lr).double().mean())
+    log(f"float32 train steps on 8 images: losses card "
+        f"{' '.join(f'{v:.6f}' for v in l_gpu.tolist())}, CPU "
+        f"{' '.join(f'{v:.6f}' for v in l_cpu.tolist())}, max rel diff {rel:.2e} "
+        f"(tol {F32_LOSS_RTOL:g}); step-1 gradient off float64 by {err_gpu:.3e} "
+        f"(card) and {err_cpu:.3e} (CPU) in norm (card at most 2x the CPU); "
+        f"optimiser fed the CPU's gradients: max |param diff| {opt_diff:.2e} * lr "
+        f"(tol {OPT_ATOL_LR:g}); the two paths' updates agree within "
+        f"{OPT_ATOL_LR:g} * lr on {path_agree:.4f} of the coordinates (not checked)")
+    require(rel <= F32_LOSS_RTOL, "float32 train steps: card and CPU losses disagree")
+    require(err_gpu <= 2 * err_cpu, "float32 gradient: the card is far from float64")
+    require(opt_diff <= OPT_ATOL_LR, "the optimiser on the card disagrees with the CPU's")
+    phases["train"] = time.perf_counter() - t
+
     log("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total wall time {time.perf_counter() - T_START:.1f} s")
-    kernels = [
+    static_json = []
+    for name, fn, src, line, err, launches in (
+            ("K1", "fused_gather_extract", "channel_planes.cu", 340,
+             max(k1_err.values()), train_launches["K1"]),
+            ("K2", "fused_extract_channel_planes", "channel_planes.cu", 195,
+             max(k2_err.values()), prep_launches["planes"]["K2"]),
+            ("K3", "fused_plane_gather_transform", "plane_gather.cu", 414,
+             float(max(k3_diff.values())), prep_launches["planes"]["K3"])):
+        k_ms, p_ms, bound_ms, bound_by = static_ms[name]
+        static_json.append(
+            {"name": fn, "route": "cuda",
+             "source": f"rfi_toolbox_tpu_torch/ops/csrc/{src}",
+             "replaces": f"rfi_toolbox_tpu/ops/fused_channels.py:{line}",
+             "launches": launches, "max_abs_err": err, "ms": k_ms,
+             "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": None})
+    kernels = static_json + [
         {"name": "fused_extract_channels", "route": "cuda",
          "source": "rfi_toolbox_tpu_torch/ops/csrc/fused_channels.cu",
          "replaces": "rfi_toolbox_tpu/ops/fused_channels.py:455",

@@ -10,12 +10,17 @@ NHWC ``(N, H, W, 3)``, flags ``(M, C, T)`` bool. Entry points run on the
 CUDA device unless the caller passes ``device="cpu"``; with no card
 they raise instead of falling back.
 
-Subpackages (the slice ported so far):
+Subpackages (the slices ported so far: flagging, and the training main
+path):
 - utils: device resolution and the float32 precision switch
-- preprocess: patchify/unpatchify, 3-channel extraction and MAD flags
-  in plain PyTorch (the plain versions of the kernels)
+- preprocess: the plain pipeline (the plain versions of the kernels),
+  the static virtual-augmentation prep and ``Preprocessor``
 - ops: hand-written CUDA kernels (csrc/) with their ctypes wrappers
-- models: UNet, BatchNorm folding, Flax snapshot conversion
+- models: UNet (bfloat16 compute, Flax BatchNorm and initialisers),
+  BatchNorm folding, Flax snapshot conversion
+- synth: synthetic waterfall batches with exact RFI masks
+- data: the in-memory ``ArrayDataset``
+- train: losses, the optax-equivalent optimiser and the train steps
 - serving: fixed-batch segmentation predictor
 - io: ``flag_waterfalls``
 - evaluation: segmentation metrics

@@ -15,7 +15,19 @@ Semantics carried over from the Flax modules:
 - the decoder concatenates ``[up, skip]`` in that order;
 - ``space_to_depth=True`` packs 2x2 pixels into channels, runs the
   network at half resolution and unpacks the logits with a 4x-channel
-  1x1 head.
+  1x1 head;
+- ``dtype`` is the compute type (bfloat16 on the training path):
+  parameters stay float32 and are cast for each conv, norm statistics
+  are reduced in float32, and the logits come back as float32;
+- BatchNorm in training mode normalises by the batch statistics and
+  updates the running ones as Flax does: ``r = 0.9 r + 0.1 s`` (Flax
+  momentum 0.9, torch momentum 0.1) with the *biased* batch variance,
+  where ``nn.BatchNorm2d`` would store the unbiased one;
+- Flax's initialisers (:func:`flax_init_`: truncated-normal
+  ``lecun_normal`` kernels, zero biases, norm scale 1 and bias 0) are
+  applied where the JAX package initialises, by
+  ``train.create_train_state`` with a seed; the constructor leaves
+  PyTorch's defaults.
 
 Weights converted from a Flax snapshot load with
 :func:`rfi_toolbox_tpu_torch.models.convert.params_from_flax`.
@@ -27,6 +39,8 @@ import torch
 from torch import nn
 
 __all__ = [
+    "BatchNorm",
+    "Conv2d",
     "DoubleConv",
     "Encoder",
     "ConvTranspose2x2",
@@ -34,17 +48,71 @@ __all__ = [
     "UNet",
     "space_to_depth",
     "depth_to_space",
+    "flax_init_",
 ]
 
 BATCH_NORM_EPS = 1e-5  # flax nn.BatchNorm default
 GROUP_NORM_EPS = 1e-6  # flax nn.GroupNorm default
+FLAX_MOMENTUM = 0.9  # the JAX UNet's nn.BatchNorm(momentum=0.9)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose float32 parameters are cast to the input's
+    dtype for the convolution, as Flax's ``nn.Conv(dtype=...)`` does."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm with Flax's semantics (eps 1e-5).
+
+    Eval mode normalises by the running statistics. Training mode
+    normalises by the batch statistics (reduced in float32, also for a
+    bfloat16 input, whose output stays bfloat16) and then sets
+    ``running = 0.9 * running + 0.1 * batch`` with the biased batch
+    variance, as Flax stores it.
+    """
+
+    def __init__(self, features):
+        super().__init__(features, eps=BATCH_NORM_EPS)
+
+    def forward(self, x):
+        if not self.training:
+            return nn.functional.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias,
+                False, 0.0, self.eps)
+        # momentum 1 leaves exactly the batch mean and the unbiased batch
+        # variance in the two scratch vectors
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = nn.functional.batch_norm(x, mean, var, self.weight, self.bias,
+                                     True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            biased = var * ((n - 1) / n)
+            self.running_mean.mul_(FLAX_MOMENTUM).add_(mean, alpha=1 - FLAX_MOMENTUM)
+            self.running_var.mul_(FLAX_MOMENTUM).add_(biased, alpha=1 - FLAX_MOMENTUM)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm (Flax's eps 1e-6) with float32 statistics; the output
+    keeps the input's dtype."""
+
+    def forward(self, x):
+        y = nn.functional.group_norm(x.to(torch.float32), self.num_groups,
+                                     self.weight, self.bias, self.eps)
+        return y.to(x.dtype)
 
 
 def _norm(kind, features):
     if kind == "batch":
-        return nn.BatchNorm2d(features, eps=BATCH_NORM_EPS)
+        return BatchNorm(features)
     if kind == "group":
-        return nn.GroupNorm(math.gcd(features, 8), features, eps=GROUP_NORM_EPS)
+        return GroupNorm(math.gcd(features, 8), features, eps=GROUP_NORM_EPS)
     if kind == "none":
         return nn.Identity()
     raise ValueError(f"unknown norm: {kind!r}")
@@ -56,9 +124,9 @@ class DoubleConv(nn.Module):
     def __init__(self, in_channels, features, norm="batch"):
         super().__init__()
         bias = norm == "none"
-        self.conv1 = nn.Conv2d(in_channels, features, 3, padding=1, bias=bias)
+        self.conv1 = Conv2d(in_channels, features, 3, padding=1, bias=bias)
         self.norm1 = _norm(norm, features)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=1, bias=bias)
+        self.conv2 = Conv2d(features, features, 3, padding=1, bias=bias)
         self.norm2 = _norm(norm, features)
 
     def forward(self, x):
@@ -85,6 +153,10 @@ class ConvTranspose2x2(nn.ConvTranspose2d):
 
     def __init__(self, in_channels, features):
         super().__init__(in_channels, features, 2, stride=2)
+
+    def forward(self, x):
+        return nn.functional.conv_transpose2d(
+            x, self.weight.to(x.dtype), self.bias.to(x.dtype), stride=2)
 
 
 class Decoder(nn.Module):
@@ -126,11 +198,15 @@ class UNet(nn.Module):
         depth: number of encoder/decoder stages (4 for ``UNet``).
         norm: ``"batch"``, ``"group"`` or ``"none"``.
         space_to_depth: the 2x2-packed variant (see module docstring).
+        dtype: compute dtype (float32 or bfloat16); parameters stay
+            float32.
     """
 
     def __init__(self, in_channels=3, out_channels=1, init_features=32,
-                 depth=4, norm="batch", space_to_depth=False):
+                 depth=4, norm="batch", space_to_depth=False,
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         f = init_features
         self.in_channels = in_channels
         self.out_channels = out_channels
@@ -155,7 +231,7 @@ class UNet(nn.Module):
             self.decoders.append(Decoder(c, feats, norm))
             c = feats
         head = 4 * out_channels if space_to_depth else out_channels
-        self.head = nn.Conv2d(c, head, 1)
+        self.head = Conv2d(c, head, 1)
 
     def config(self):
         """Constructor arguments, to rebuild the same architecture."""
@@ -166,10 +242,13 @@ class UNet(nn.Module):
             "depth": self.depth,
             "norm": self.norm,
             "space_to_depth": self.space_to_depth,
+            "dtype": self.dtype,
         }
 
     def forward(self, x):
-        """(N, C, H, W) float32 -> (N, out_channels, H, W) logits."""
+        """(N, C, H, W) float -> (N, out_channels, H, W) float32 logits,
+        computed in :attr:`dtype`."""
+        x = x.to(self.dtype)
         if self.space_to_depth:
             x = space_to_depth(x)
         skips = []
@@ -180,4 +259,30 @@ class UNet(nn.Module):
         for dec, skip in zip(self.decoders, reversed(skips)):
             x = dec(x, skip)
         x = self.head(x)
-        return depth_to_space(x) if self.space_to_depth else x
+        x = depth_to_space(x) if self.space_to_depth else x
+        return x.to(torch.float32)
+
+
+@torch.no_grad()
+def flax_init_(model, generator=None):
+    """Give ``model``'s parameters Flax's initial values, in place:
+    ``lecun_normal`` kernels (a normal of std ``sqrt(1 / fan_in) /
+    0.8796``, truncated at two standard deviations; fan_in is the
+    kernel's input channels times its spatial size), zero biases, norm
+    scale 1 and bias 0, running mean 0 and variance 1. Returns
+    ``model``."""
+    for module in model.modules():
+        if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
+            w = module.weight
+            if isinstance(module, nn.ConvTranspose2d):  # (Cin, Cout, kh, kw)
+                fan_in = w.shape[0] * w.shape[2] * w.shape[3]
+            else:  # (Cout, Cin, kh, kw)
+                fan_in = w[0].numel()
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, (nn.BatchNorm2d, nn.GroupNorm)):
+            module.reset_parameters()
+    return model

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``csrc/`` have a plain C interface and include no
-PyTorch header. On first use, one ``nvcc`` call compiles all of them
-for ``sm_90a`` into one shared library under ``build/torch_kernels/``
-at the root of the checkout, named by a hash of the sources and flags,
-and ``ctypes`` loads it. Nothing is built at import time, and a CPU
-tensor never needs the library.
+PyTorch header. On first use, one ``nvcc`` process per source compiles
+them for ``sm_90a``, all started together, and one more links the
+objects into a shared library under ``build/torch_kernels/`` at the
+root of the checkout, named by a hash of the sources and flags;
+``ctypes`` loads it. Nothing is built at import time, and a CPU tensor
+never needs the library.
 
 ``nvcc`` is looked up in ``$CUDA_HOME/bin``, then on ``PATH``, then in
 ``/usr/local/cuda/bin``. The compiler's report (``-Xptxas -v``: each
@@ -28,9 +29,9 @@ __all__ = ["load", "check", "stream_of", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes; every one returns a cudaError_t as int
@@ -39,6 +40,14 @@ _SIGNATURES = {
     "rfi_fused_extract_channels": (_P, _P, _I, _I, _I, _I, _P),
     # in, flags, scratch, n, hw, is_complex, sigma, stream
     "rfi_mad_flag_patches": (_P, _P, _P, _I, _I, _I, _F, _P),
+    # in, grad3, amp, phase, n, h, w, is_complex, stream
+    "rfi_fused_extract_channel_planes": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # in, base_idx, pidx, grad, amp, phase, k, h, w, is_complex, stream
+    "rfi_fused_gather_extract": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # grad3, log_amp, phase, base_idx, pidx, variant, grad_out, amp_out,
+    # phase_out, m, k, h, stream
+    "rfi_fused_plane_gather_transform": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -95,19 +104,35 @@ def load():
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources())]
+        nvcc = _nvcc()
+        objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(_sources(), objects))
+        ]
+        log, failed = [], []
+        for cmd, proc in procs:
+            out = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(out)
+        if not failed:
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *(str(o) for o in objects)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.stdout + proc.stderr)
         seconds = time.perf_counter() - t0
-        (BUILD_DIR / "nvcc.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        )
-        if proc.returncode != 0:
+        (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-            )
+            raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
         os.replace(tmp, path)
     return KernelLibrary(path, seconds)
 

@@ -23,16 +23,11 @@
 
 namespace {
 
+using namespace rfi;
+
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPixels = 128 * 128;
-
-constexpr float kLogMin = -3.0f;
-constexpr float kLogSpan = 7.0f;  // LOG_MAX - LOG_MIN
-constexpr float kPi = 3.14159265358979323846f;
-constexpr float kTwoPi = 6.28318530717958647692f;
-constexpr float kMean0 = 0.485f, kMean1 = 0.456f, kMean2 = 0.406f;
-constexpr float kStd0 = 0.229f, kStd1 = 0.224f, kStd2 = 0.225f;
 
 // Forward-difference gradient magnitude with a zero first row/column.
 __device__ __forceinline__ float gradient(const float* log_amp, int p, int w) {
@@ -40,16 +35,6 @@ __device__ __forceinline__ float gradient(const float* log_amp, int p, int w) {
   const float td = (p >= w) ? __fsub_rn(la, log_amp[p - w]) : 0.0f;
   const float fd = (p % w) ? __fsub_rn(la, log_amp[p - 1]) : 0.0f;
   return __fsqrt_rn(__fadd_rn(__fmul_rn(td, td), __fmul_rn(fd, fd)));
-}
-
-// (x - lo) / span, or 0 where span is not positive (constant patch).
-__device__ __forceinline__ float minmax(float x, float lo, float span) {
-  return span > 0.0f ? __fdiv_rn(__fsub_rn(x, lo), span) : 0.0f;
-}
-
-// clip to [0, 1], NaN kept
-__device__ __forceinline__ float clip01(float x) {
-  return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
 }
 
 template <bool kComplex>

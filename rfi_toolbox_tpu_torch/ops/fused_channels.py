@@ -1,13 +1,22 @@
-"""K4: fused 3-channel extraction on the card.
+"""Channel-extraction kernels on the card: K4, K2, K1 and K3.
 
-Counterpart of ``rfi_toolbox_tpu/ops/fused_channels.py:
-fused_extract_channels``. The kernel is ``csrc/fused_channels.cu``; its
-plain version is :func:`fused_extract_channels_plain` (the pipeline's
-``imagenet_normalize(extract_channels(x))``), which the wrapper runs for
-a tensor on the CPU. On a CUDA tensor the wrapper launches the kernel or
-raises; nothing falls back.
+Counterparts of ``rfi_toolbox_tpu/ops/fused_channels.py``:
 
-``fused_extract_channels.launches`` counts the kernel's launches.
+- K4 :func:`fused_extract_channels` (``csrc/fused_channels.cu``): the
+  3-channel extraction of gathered patches;
+- K2 :func:`fused_extract_channel_planes` (``csrc/channel_planes.cu``):
+  the five variant-aware planes of base patches;
+- K1 :func:`fused_gather_extract` (``csrc/channel_planes.cu``): the
+  extraction fused with the static selection's gather;
+- K3 :func:`fused_plane_gather_transform` (``csrc/plane_gather.cu``): the
+  plane gather with the variant's flip/transpose.
+
+Each wrapper runs its plain PyTorch version (``*_plain``) for a tensor on
+the CPU, and for a CUDA tensor launches its kernel or raises; nothing
+falls back. ``<wrapper>.launches`` counts each kernel's launches. Index
+ranges are checked on the card without a host sync
+(``torch._assert_async``): a bad index stops the process at its next
+synchronisation.
 """
 
 import torch
@@ -15,14 +24,53 @@ import torch
 from ..preprocess import pipeline as P
 from . import _lib
 
-__all__ = ["fused_extract_channels", "fused_extract_channels_plain",
-           "MAX_PATCH_PIXELS"]
+__all__ = [
+    "fused_extract_channels",
+    "fused_extract_channels_plain",
+    "fused_extract_channel_planes",
+    "fused_extract_channel_planes_plain",
+    "fused_gather_extract",
+    "fused_gather_extract_plain",
+    "fused_plane_gather_transform",
+    "fused_plane_gather_transform_plain",
+    "MAX_PATCH_PIXELS",
+]
 
-MAX_PATCH_PIXELS = 128 * 128  # kMaxPixels in csrc/fused_channels.cu
+MAX_PATCH_PIXELS = 128 * 128  # kMaxPixels / kMaxSide^2 in csrc/
+
+
+def _check_patches(patches, dtypes):
+    if patches.device.type != "cuda":
+        raise ValueError(f"unsupported device {patches.device}")
+    if patches.dtype not in dtypes:
+        raise TypeError(f"expected {' or '.join(map(str, dtypes))}, got {patches.dtype}")
+    if patches.ndim != 3:
+        raise ValueError(f"expected (N, H, W) patches, got {tuple(patches.shape)}")
+    if not patches.is_contiguous():
+        raise ValueError("patches must be contiguous")
+    _, h, w = patches.shape
+    if h * w > MAX_PATCH_PIXELS:
+        raise ValueError(
+            f"the extraction kernels take patches of at most "
+            f"{MAX_PATCH_PIXELS} pixels (128 x 128), got {h} x {w}"
+        )
+
+
+def _check_index(idx, name, k, bound, device):
+    """(k,) integer index tensor on ``device`` with values in [0, bound)
+    -> contiguous int32; the range is asserted on the card."""
+    if idx.device != device:
+        raise ValueError(f"{name} is on {idx.device}, the planes on {device}")
+    if idx.dtype not in (torch.int32, torch.int64) or tuple(idx.shape) != (k,):
+        raise ValueError(f"{name} must be ({k},) int32 or int64, got "
+                         f"{tuple(idx.shape)} {idx.dtype}")
+    torch._assert_async(((idx >= 0) & (idx < bound)).all(),
+                        f"{name} out of range [0, {bound})")
+    return idx.to(torch.int32).contiguous()
 
 
 def fused_extract_channels_plain(patches):
-    """Plain PyTorch version of the kernel, on any device."""
+    """Plain PyTorch version of K4, on any device."""
     return P.imagenet_normalize(P.extract_channels(patches))
 
 
@@ -35,20 +83,8 @@ def fused_extract_channels(patches):
     """
     if patches.device.type == "cpu":
         return fused_extract_channels_plain(patches)
-    if patches.device.type != "cuda":
-        raise ValueError(f"unsupported device {patches.device}")
-    if patches.dtype not in (torch.complex64, torch.float32):
-        raise TypeError(f"expected complex64 or float32, got {patches.dtype}")
-    if patches.ndim != 3:
-        raise ValueError(f"expected (N, H, W) patches, got {tuple(patches.shape)}")
-    if not patches.is_contiguous():
-        raise ValueError("patches must be contiguous")
+    _check_patches(patches, (torch.complex64, torch.float32))
     n, h, w = patches.shape
-    if h * w > MAX_PATCH_PIXELS:
-        raise ValueError(
-            f"the extraction kernel takes patches of at most "
-            f"{MAX_PATCH_PIXELS} pixels (128 x 128), got {h} x {w}"
-        )
     out = torch.empty((n, h, w, 3), dtype=torch.float32, device=patches.device)
     if n == 0:
         return out
@@ -62,3 +98,162 @@ def fused_extract_channels(patches):
 
 
 fused_extract_channels.launches = 0
+
+
+def fused_extract_channel_planes_plain(patches):
+    """Plain PyTorch version of K2, on any device."""
+    return P.extract_channel_planes(patches)
+
+
+def fused_extract_channel_planes(patches):
+    """(M, H, W) complex64 or float32 base patches -> ``(grad3 (3, M, H,
+    W), log_amp (M, H, W), phase (M, H, W))`` float32, ImageNet-normalised
+    (see :func:`..preprocess.pipeline.extract_channel_planes`; real input
+    gets the min-max log-amplitude and a zero phase).
+
+    A CPU tensor goes through the plain version. A CUDA tensor must be
+    contiguous complex64 or float32 with H * W <= 128 * 128.
+    """
+    if patches.device.type == "cpu":
+        return fused_extract_channel_planes_plain(patches)
+    _check_patches(patches, (torch.complex64, torch.float32))
+    m, h, w = patches.shape
+    grad3 = torch.empty((3, m, h, w), dtype=torch.float32, device=patches.device)
+    amp = torch.empty((m, h, w), dtype=torch.float32, device=patches.device)
+    phase = torch.empty_like(amp)
+    if m == 0:
+        return grad3, amp, phase
+    rc = _lib.load().rfi_fused_extract_channel_planes(
+        patches.data_ptr(), grad3.data_ptr(), amp.data_ptr(), phase.data_ptr(),
+        m, h, w, int(patches.is_complex()), _lib.stream_of(patches),
+    )
+    _lib.check(rc, "fused_extract_channel_planes")
+    fused_extract_channel_planes.launches += 1
+    return grad3, amp, phase
+
+
+fused_extract_channel_planes.launches = 0
+
+
+def _gather_planes(planes, base_idx, pidx):
+    """Planes of M base patches -> the three planes of the K selected
+    ones: the gradient plane ``pidx`` of base patch ``base_idx``, and its
+    log-amplitude and phase planes."""
+    grad3, log_amp, phase = planes
+    m = log_amp.shape[0]
+    grad = grad3.reshape(3 * m, *grad3.shape[2:])[pidx.long() * m + base_idx.long()]
+    return grad, log_amp[base_idx.long()], phase[base_idx.long()]
+
+
+def fused_gather_extract_plain(patches, base_idx, pidx):
+    """Plain PyTorch version of K1, on any device: the planes of every
+    base patch, then the gather."""
+    return _gather_planes(P.extract_channel_planes(patches), base_idx, pidx)
+
+
+def fused_gather_extract(patches, base_idx, pidx):
+    """Gather and variant-aware extraction in one pass.
+
+    Args:
+        patches: (M, H, W) complex64 or float32 base patches.
+        base_idx: (K,) int base-patch index of each output.
+        pidx: (K,) int gradient plane of each output (0 = fwd/fwd,
+            1 = down/fwd, 2 = fwd/down).
+
+    Returns:
+        ``(grad, log_amp, phase)``, each (K, H, W) float32 and
+        ImageNet-normalised, in the base orientation (the caller applies
+        the variant's flip/transpose); real input gets the min-max
+        log-amplitude and a zero phase.
+
+    A CPU tensor goes through the plain version. On the card the patches
+    must be contiguous complex64 or float32 with H * W <= 128 * 128, and
+    the indices on the same card.
+    """
+    if patches.device.type == "cpu":
+        return fused_gather_extract_plain(patches, base_idx, pidx)
+    _check_patches(patches, (torch.complex64, torch.float32))
+    m, h, w = patches.shape
+    k = base_idx.shape[0]
+    base_idx = _check_index(base_idx, "base_idx", k, m, patches.device)
+    pidx = _check_index(pidx, "pidx", k, 3, patches.device)
+    grad = torch.empty((k, h, w), dtype=torch.float32, device=patches.device)
+    amp = torch.empty_like(grad)
+    phase = torch.empty_like(grad)
+    if k == 0:
+        return grad, amp, phase
+    rc = _lib.load().rfi_fused_gather_extract(
+        patches.data_ptr(), base_idx.data_ptr(), pidx.data_ptr(),
+        grad.data_ptr(), amp.data_ptr(), phase.data_ptr(), k, h, w,
+        int(patches.is_complex()), _lib.stream_of(patches),
+    )
+    _lib.check(rc, "fused_gather_extract")
+    fused_gather_extract.launches += 1
+    return grad, amp, phase
+
+
+fused_gather_extract.launches = 0
+
+
+def fused_plane_gather_transform_plain(planes, base_idx, pidx, variant):
+    """Plain PyTorch version of K3, on any device."""
+    from ..preprocess.static_prep import transform_by_variant
+
+    return tuple(transform_by_variant(x, variant)
+                 for x in _gather_planes(planes, base_idx, pidx))
+
+
+def fused_plane_gather_transform(planes, base_idx, pidx, variant):
+    """Gather the selected channel planes and apply each output's variant
+    flip/transpose, in one pass; bit-equal to the plain version.
+
+    Args:
+        planes: ``(grad3 (3, M, h, h), log_amp (M, h, h), phase
+            (M, h, h))`` float32, as :func:`fused_extract_channel_planes`
+            returns them; square tiles.
+        base_idx: (K,) int base-patch index of each output.
+        pidx: (K,) int gradient plane of each output.
+        variant: (K,) int variant id [orig, flipud, T, flipud.T].
+
+    Returns:
+        ``(grad, log_amp, phase)``, each (K, h, h) float32 in the
+        variant's orientation.
+
+    CPU tensors go through the plain version. On the card the planes
+    must be contiguous float32 with h <= 128, and the indices on the same
+    card.
+    """
+    grad3, log_amp, phase = planes
+    if grad3.device.type == "cpu":
+        return fused_plane_gather_transform_plain(planes, base_idx, pidx, variant)
+    m, h, w = log_amp.shape
+    if h != w:
+        raise ValueError("the variant transform requires square patches")
+    for name, x, shape in (("grad3", grad3, (3, m, h, w)),
+                           ("log_amp", log_amp, (m, h, w)),
+                           ("phase", phase, (m, h, w))):
+        if x.device != log_amp.device or x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 on {log_amp.device}")
+        if tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {shape}, got "
+                             f"{tuple(x.shape)}")
+    _check_patches(log_amp, (torch.float32,))
+    k = base_idx.shape[0]
+    base_idx = _check_index(base_idx, "base_idx", k, m, log_amp.device)
+    pidx = _check_index(pidx, "pidx", k, 3, log_amp.device)
+    variant = _check_index(variant, "variant", k, 4, log_amp.device)
+    outs = tuple(torch.empty((k, h, w), dtype=torch.float32,
+                             device=log_amp.device) for _ in range(3))
+    if k == 0 or m == 0:
+        return outs
+    rc = _lib.load().rfi_fused_plane_gather_transform(
+        grad3.data_ptr(), log_amp.data_ptr(), phase.data_ptr(),
+        base_idx.data_ptr(), pidx.data_ptr(), variant.data_ptr(),
+        *(o.data_ptr() for o in outs), m, k, h, _lib.stream_of(log_amp),
+    )
+    _lib.check(rc, "fused_plane_gather_transform")
+    fused_plane_gather_transform.launches += 1
+    return outs
+
+
+fused_plane_gather_transform.launches = 0

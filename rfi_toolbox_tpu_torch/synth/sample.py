@@ -1,0 +1,175 @@
+"""Synthetic waterfall batches on the card.
+
+Counterpart of ``rfi_toolbox_tpu/synth/sample.py`` (``generate_bandpass``,
+``make_sample_generator``; ``make_instance_sample_generator`` is not
+ported yet). Where the JAX package ``vmap``s one sample over keys, the
+port draws a whole batch on the device in one call: the separable event
+stack becomes two batched matrix products, the sweeps a loop over their
+few events. Laws, units (RFI amplitudes in mJy, drawn in Jy x 1000) and
+the per-polarisation rules are the reference's; the random stream is a
+``torch.Generator``'s.
+"""
+
+import torch
+
+from ..utils.device import resolve_device
+from . import events as E
+
+__all__ = ["make_sample_generator", "generate_bandpass"]
+
+
+def _as_range(value):
+    """Scalar or [min, max] -> (min, max) floats."""
+    if isinstance(value, (list, tuple)):
+        return float(value[0]), float(value[1])
+    return float(value), float(value)
+
+
+def _count_range(value):
+    """Event count: int or [min, max] inclusive -> (lo, hi)."""
+    if isinstance(value, (list, tuple)):
+        return int(value[0]), int(value[1])
+    return int(value), int(value)
+
+
+def _integer_pow(x, y):
+    """x ** y for a positive int y by binary exponentiation, the
+    multiplications in the order XLA's ``integer_pow`` does them."""
+    acc = None
+    while y > 0:
+        if y & 1:
+            acc = x if acc is None else acc * x
+        y >>= 1
+        if y > 0:
+            x = x * x
+    return acc
+
+
+def generate_bandpass(num_channels, order, device=None):
+    """(num_channels,) float32 polynomial roll-off over the outer 10% of
+    channels at both ends. ``device``: ``None`` for the CUDA card."""
+    dev = resolve_device(device)
+    edge = int(num_channels * 0.1)
+    idx = torch.arange(num_channels, device=dev)
+    bp = torch.ones(num_channels, dtype=torch.float32, device=dev)
+    if edge == 0:
+        return bp
+    # XLA rewrites the division by the constant edge as a product with
+    # its float32 reciprocal; the port does the same, bit for bit
+    inv = torch.tensor(1.0 / edge, dtype=torch.float32, device=dev)
+    lo_t = idx.to(torch.float32) * inv
+    hi_t = (num_channels - 1 - idx).to(torch.float32) * inv
+    bp = torch.where(idx < edge, _integer_pow(lo_t, order), bp)
+    return torch.where(idx >= num_channels - edge, _integer_pow(hi_t, order), bp)
+
+
+def make_sample_generator(num_channels, num_times, noise_level=1.0,
+                          rfi_power_min=1000.0, rfi_power_max=10000.0,
+                          rfi_config=None, enable_bandpass=False,
+                          bandpass_order=8, num_polarizations=1, pol_corr=0.8,
+                          device=None):
+    """Build ``sample_fn(batch, generator) -> (waterfall, mask, params)``.
+
+    Args mirror the JAX package's; ``rfi_config`` maps event type ->
+    ``{"count": int | [min, max]}``. ``device``: ``None`` for the CUDA
+    card. ``generator`` must be a ``torch.Generator`` on that device.
+
+    Returns ``sample_fn`` producing, for ``batch`` samples:
+        waterfall: (batch, num_polarizations, nc, nt) complex64
+        mask: (batch, num_polarizations, nc, nt) bool, the exact support
+            of the injected RFI
+        params: event type -> dict of (batch, max events) parameter
+            tensors, with ``amplitude_mjy`` and ``_count`` (batch,)
+    """
+    dev = resolve_device(device)
+    nc, nt = int(num_channels), int(num_times)
+    npol = int(num_polarizations)
+    pol_corr = float(pol_corr)
+    noise_rng = _as_range(noise_level)
+    pmin_rng = _as_range(rfi_power_min)
+    pmax_rng = _as_range(rfi_power_max)
+    if rfi_config is None:
+        rfi_config = {t: {"count": 1} for t in E.SEPARABLE_TYPES}
+    sep_counts = {}
+    for name in E.SEPARABLE_TYPES:
+        lo, hi = _count_range(rfi_config.get(name, {}).get("count", 0))
+        if hi > 0:
+            sep_counts[name] = (lo, hi)
+    sweep_lo, sweep_hi = _count_range(
+        rfi_config.get("frequency_sweep", {}).get("count", 0))
+    bandpass = (generate_bandpass(nc, int(bandpass_order), dev)
+                if enable_bandpass else None)
+
+    def _count(g, lo, hi, b):
+        if lo == hi:
+            return torch.full((b,), lo, dtype=torch.int64, device=dev)
+        return torch.randint(lo, hi + 1, (b,), generator=g, device=dev)
+
+    def sample_fn(batch, generator):
+        g, b = generator, int(batch)
+        if g.device.type != dev.type:
+            raise ValueError(f"generator on {g.device}, samples on {dev}")
+        noise = E._uniform(g, *noise_rng, (b, 1, 1))
+        pmin = E._uniform(g, *pmin_rng, (b, 1))
+        pmax = E._uniform(g, *pmax_rng, (b, 1))
+        baseline = noise + noise * 0.1 * torch.randn((b, nc, nt), generator=g,
+                                                     device=dev)
+        if bandpass is not None:
+            baseline = baseline * bandpass[:, None]
+
+        params = {}
+        f_rows, t_rows, amp_rows = [], [], []
+        for name, (lo, hi) in sep_counts.items():
+            draw, profile = E.SEPARABLE_TYPES[name]
+            count = _count(g, lo, hi, b)
+            p = draw(g, (b, hi), nc, nt)
+            f, t = profile(p, nc, nt)
+            valid = torch.arange(hi, device=dev) < count[:, None]
+            amps = E._uniform(g, pmin, pmax, (b, hi)) * 1000.0  # Jy -> mJy
+            f_rows.append(f * valid[..., None])
+            t_rows.append(t)
+            amp_rows.append(amps)
+            params[name] = {**p, "amplitude_mjy": amps, "_count": count}
+        if f_rows:
+            f = torch.cat(f_rows, dim=1)  # (b, E, nc)
+            t = torch.cat(t_rows, dim=1)  # (b, E, nt)
+            amps = torch.cat(amp_rows, dim=1)
+            rfi_signal = (f * amps[..., None]).transpose(1, 2) @ t
+            rfi_mask = ((f > 0).to(torch.float32).transpose(1, 2)
+                        @ (t > 0).to(torch.float32)) > 0
+        else:
+            rfi_signal = torch.zeros((b, nc, nt), dtype=torch.float32, device=dev)
+            rfi_mask = torch.zeros((b, nc, nt), dtype=torch.bool, device=dev)
+
+        if sweep_hi > 0:
+            count = _count(g, sweep_lo, sweep_hi, b)
+            amps = E._uniform(g, pmin, pmax, (b, sweep_hi)) * 1000.0
+            s_sig, s_mask, s_params = E.frequency_sweep_accumulate(
+                g, nc, nt, sweep_hi, count, amps)
+            rfi_signal = rfi_signal + s_sig
+            rfi_mask = rfi_mask | s_mask
+            params["frequency_sweep"] = {**s_params, "amplitude_mjy": amps,
+                                         "_count": count}
+
+        pols, masks = [], []
+        for pol in range(npol):
+            if pol == 0:
+                pols.append(baseline + rfi_signal)
+                masks.append(rfi_mask)
+            elif pol == 1:
+                corr_noise = noise * 0.1 * torch.randn((b, nc, nt), generator=g,
+                                                       device=dev)
+                pols.append(pol_corr * rfi_signal + (1 - pol_corr) * corr_noise
+                            + baseline)
+                masks.append(rfi_mask)
+            else:
+                pols.append(noise + noise * 0.1 * torch.randn(
+                    (b, nc, nt), generator=g, device=dev))
+                masks.append(torch.zeros_like(rfi_mask))
+        amplitude = torch.stack(pols, dim=1)
+        phase = E._uniform(g, 0.0, 2.0 * torch.pi, (b, npol, nc, nt))
+        waterfall = torch.complex(amplitude * torch.cos(phase),
+                                  amplitude * torch.sin(phase))
+        return waterfall, torch.stack(masks, dim=1), params
+
+    return sample_fn

@@ -20,14 +20,18 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rfi_toolbox_tpu")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tools" / "torch_train_profile.py"]
 
 
 def test_import_leaves_jax_out():
     code = (
         "import sys, rfi_toolbox_tpu_torch, rfi_toolbox_tpu_torch.io, "
         "rfi_toolbox_tpu_torch.serving, rfi_toolbox_tpu_torch.evaluation, "
-        "rfi_toolbox_tpu_torch.ops, rfi_toolbox_tpu_torch.utils\n"
+        "rfi_toolbox_tpu_torch.ops, rfi_toolbox_tpu_torch.utils, "
+        "rfi_toolbox_tpu_torch.train, rfi_toolbox_tpu_torch.synth, "
+        "rfi_toolbox_tpu_torch.data, rfi_toolbox_tpu_torch.preprocess.static_prep, "
+        "rfi_toolbox_tpu_torch.preprocess.preprocessor\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -57,7 +61,8 @@ def test_kernel_sources_are_plain_c_interface():
     from rfi_toolbox_tpu_torch.ops import _lib
 
     sources = sorted((PORT / "ops" / "csrc").glob("*.cu*"))
-    assert {p.name for p in sources} >= {"fused_channels.cu", "mad_flags.cu"}
+    assert {p.name for p in sources} >= {"fused_channels.cu", "mad_flags.cu",
+                                         "channel_planes.cu", "plane_gather.cu"}
     text = "\n".join(p.read_text() for p in sources)
     assert not re.search(r"#include\s*[<\"](torch|ATen|c10|pybind11)", text)
     for name in _lib._SIGNATURES:
@@ -99,7 +104,10 @@ def test_entry_points_want_the_card():
         pytest.skip("this machine has a CUDA device")
     from rfi_toolbox_tpu_torch.io import flag_waterfalls
     from rfi_toolbox_tpu_torch.models import UNet
+    from rfi_toolbox_tpu_torch.preprocess import Preprocessor
     from rfi_toolbox_tpu_torch.serving import CompiledPredictor
+    from rfi_toolbox_tpu_torch.synth import make_sample_generator
+    from rfi_toolbox_tpu_torch.train import create_train_state
     from rfi_toolbox_tpu_torch.utils import resolve_device
 
     vis = np.ones((1, 16, 16), np.complex64)
@@ -111,8 +119,21 @@ def test_entry_points_want_the_card():
         flag_waterfalls(vis)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CompiledPredictor(UNet(init_features=2, depth=2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Preprocessor(vis).create_dataset(patch_size=8, static_num_patches=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_sample_generator(16, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_train_state(UNet(init_features=2, depth=2), 0)
     assert resolve_device("cpu") == torch.device("cpu")
     assert flag_waterfalls(vis, device="cpu").shape == (1, 16, 16)
+    ds = Preprocessor(vis, device="cpu").create_dataset(
+        patch_size=8, static_num_patches=4, use_custom_flags=False)
+    assert ds.images.shape == (4, 8, 8, 3)
+    fn = make_sample_generator(16, 16, device="cpu")
+    assert fn(1, torch.Generator().manual_seed(0))[0].shape == (1, 1, 16, 16)
+    state = create_train_state(UNet(init_features=2, depth=2), 0, device="cpu")
+    assert state.device == torch.device("cpu")
 
 
 def test_set_tf32_sets_both_switches():
