@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-It drives the port's flagging service and its training main path
-(``rfi_toolbox_tpu_torch``) on the card and fails (non-zero exit) if any
-phase fails:
+It drives the port's flagging service, its training main path and the
+train -> export -> serve loop (``rfi_toolbox_tpu_torch``) on the card and
+fails (non-zero exit) if any phase fails:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: one nvcc per source, all started together, and one link build
@@ -47,7 +47,34 @@ phase fails:
    seeded weights: both losses within 1e-4 relative, the card's first
    gradient at most twice as far from a float64 CPU gradient as the
    CPU's float32 one, and the optimiser on the card, fed the CPU's
-   gradients, within 1e-3 * lr of the CPU's parameters.
+   gradients, within 1e-3 * lr of the CPU's parameters;
+10. K6a (conv3x3_call) on the 18 conv layers of the folded UNet16 snapshot
+    at batch 128, each on its real input (captured by forward hooks from
+    phase 5's images): against its plain version and the cuDNN layer
+    (within 1e-5 of the layer's max |y|), times of the kernel, the plain
+    version and cuDNN's fused conv+bias+ReLU, and each layer's bound
+    (``WINOGRAD_M``), under which none of the three times may fall; then
+    flag_waterfalls with every DoubleConv computed by K6a: one launch per
+    layer, masks against the cuDNN predictor (>= 99.9% of the pixels),
+    IoU > 0.9;
+11. the same for K7 (double_conv_gn_relu) on the 9 DoubleConvs of the
+    GroupNorm UNet16 snapshot, against its plain version and the port's
+    DoubleConv eval forward (within 1e-4);
+12. one float32 UNet32 training step at batch 128 with every conv3x3
+    through the differentiable conv3x3 (K6a forward and dx, K6b dW)
+    against the same step through cuDNN (TF32 off) from the same weights:
+    loss within 1e-4 relative, the gradients within 1e-3 in relative L2
+    together, each parameter's as close to a float64 step's as cuDNN's
+    (2x, or 1e-4); K6b per layer against its plain version and cuDNN's
+    weight-gradient-only backward, its times and bounds, and two runs
+    bit-equal;
+13. train -> export -> serve: Trainer.fit of a bf16 UNet32 for one epoch
+    of the K=1920 static dataset (batch 128, 15 fused steps, 256
+    validation patches), export_params, CompiledPredictor.from_snapshot
+    and flag_waterfalls on phase 5's waterfalls, whose flags agree with
+    Trainer.predict on >= 99.9% of the pixels; predict(tta=True); a
+    checkpoint restored bit-equal, and the next step bit-equal with
+    deterministic algorithms.
 
 Waterfalls/s is timed on the host clock over 3 windows of at least
 ``WINDOW_S`` seconds each (calls queued back to back, one synchronize at
@@ -58,17 +85,21 @@ The waterfalls are Gaussian noise with injected RFI stripes and blocks,
 made with numpy from a fixed seed, so the exact mask is known. The
 launch counts are set to 0 just before each path's run and read just
 after it. The line before the last is one JSON object with each kernel's
-launches, error, times and bound; the last line is
+launches, error, times and bound (K6a, K6b and K7 summed over their
+layers; the line before it lists the layers); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Budget: under
-5 minutes with the build.
+5 minutes with the build. Writes only under build/ (the snapshot and
+checkpoints of phase 13).
 """
 
 import copy
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -86,6 +117,13 @@ WINDOWS = 3
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 K4_OPS_PER_PIXEL = 40  # |z|, log10, gradient, min/max, window, atan2, affine
+# A 3x3 conv's bound counts the products of the fewest-multiplication exact
+# algorithm a float32 library runs, not the direct ones: Winograd's minimal
+# filtering F(m x m, 3 x 3) takes (m + 2)^2 products for an m x m tile of
+# outputs (of pixels, for dW) per (Ci, Co) pair, against 9 m^2 direct. m = 6
+# is the largest tile in float32 use (NNPACK's 8 x 8-tile Winograd); larger
+# tiles lose float32 accuracy. Transforms are not counted: a floor.
+WINOGRAD_M = 6
 # What K5's design spends, not what its function needs (an exact median
 # and MAD take a few operations per pixel, so K5 is bound by its bytes):
 # 2 radix selects x 32 passes x (2 compares + 2 adds) per pixel
@@ -105,7 +143,26 @@ EXTRACT_TOL = 2e-5
 F32_LOSS_RTOL = 1e-4  # card vs CPU, float32, TF32 off
 OPT_ATOL_LR = 1e-3  # optimiser on the card vs CPU, same gradients, in lr
 BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16
+# the conv kernels against their plain versions and cuDNN, as a share of the
+# layer's max |y|: float32 sums of up to 9 * 512 terms in another order
+CONV_RTOL = 1e-5
+K7_RTOL = 1e-4  # GroupNorm divides by the group's std: 10x K6a's
+DW_RTOL = 1e-4  # dW sums 128 * 128^2 * 9 products per value
+TRAIN_LOSS_RTOL = 1e-4  # the float32 UNet32 step through K6a + K6b vs cuDNN
+# float32 gradients of UNet32 are ~2e-4 off float64 in norm (phase 9), and a
+# BatchNorm scale's gradient, a sum that cancels, far more: so all the
+# gradients together are held to cuDNN's, and each parameter's to float64
+# as closely as cuDNN's (2x, or 1e-4 where cuDNN lands closer than 5e-5)
+GRAD_RTOL = 1e-3  # all parameters, relative L2, against cuDNN's step
+GRAD_F64_FLOOR = 1e-4
+MASK_AGREE = 0.999  # share of pixels two forwards must flag alike
 PLANE_OPS_PER_PIXEL = 60  # |z|, log10, 3 gradients, min/max, windows, atan2, affines
+
+
+def conv3x3_flops(n, h, w, ci, co):
+    """Flops (product + accumulation = 2) of a 3x3 conv, its dx or its dW
+    over n x h x w pixels at Winograd F(6x6, 3x3)'s product count."""
+    return 2 * n * h * w * ci * co * (WINOGRAD_M + 2) ** 2 / WINOGRAD_M ** 2
 
 T_START = time.perf_counter()
 
@@ -195,7 +252,7 @@ def main():
     from rfi_toolbox_tpu_torch import ops
     from rfi_toolbox_tpu_torch.evaluation import evaluate_segmentation
     from rfi_toolbox_tpu_torch.io import flag_waterfalls
-    from rfi_toolbox_tpu_torch.models import UNet
+    from rfi_toolbox_tpu_torch.models import DoubleConv, UNet
     from rfi_toolbox_tpu_torch.ops import (
         _lib,
         fused_extract_channels,
@@ -208,7 +265,14 @@ def main():
     from rfi_toolbox_tpu_torch.preprocess.static_prep import make_static_prep_fn
     from rfi_toolbox_tpu_torch.serving import CompiledPredictor
     from rfi_toolbox_tpu_torch.synth import make_sample_generator
-    from rfi_toolbox_tpu_torch.train import bce_dice_loss, create_train_state, train_steps
+    from rfi_toolbox_tpu_torch.train import (
+        Trainer,
+        bce_dice_loss,
+        create_train_state,
+        export_params,
+        train_step,
+        train_steps,
+    )
     from rfi_toolbox_tpu_torch.train.flops import unet_train_flops_analytic
     from rfi_toolbox_tpu_torch.utils import set_tf32
 
@@ -461,7 +525,8 @@ def main():
     def reset_counts():
         for fn in (ops.fused_gather_extract, ops.fused_extract_channel_planes,
                    ops.fused_plane_gather_transform, fused_extract_channels,
-                   mad_flag_patches):
+                   mad_flag_patches, ops.conv3x3_call, ops.conv3x3_dw,
+                   ops.double_conv_gn_relu):
             fn.launches = 0
 
     def counts():
@@ -640,6 +705,379 @@ def main():
     require(opt_diff <= OPT_ATOL_LR, "the optimiser on the card disagrees with the CPU's")
     phases["train"] = time.perf_counter() - t
 
+    # -- K6a on the folded UNet16 (serving) ------------------------------------------
+    t = time.perf_counter()
+    images_train, labels_train = images, labels  # phase 9's last dataset, (15, 128, ...)
+    images = fused_extract_channels(patches)  # phase 5's 512 images
+
+    def conv_bound(n, h, w, ci, co):
+        """(ms, kind) of a 3x3 conv's float32 work: each input read and
+        output written once, the products of conv3x3_flops."""
+        return bound(4 * (n * h * w * (ci + co) + 9 * ci * co + co),
+                     conv3x3_flops(n, h, w, ci, co))
+
+    def convs_of(model):
+        return [m for m in model.modules()
+                if isinstance(m, torch.nn.Conv2d) and m.kernel_size == (3, 3)]
+
+    def blocks_of(model):
+        return [m for m in model.modules() if isinstance(m, DoubleConv)]
+
+    def capture(modules, run):
+        """Each module's first input and output during run()."""
+        seen = {}
+
+        def hook(module, inputs, output):
+            seen.setdefault(module, (inputs[0], output))
+
+        hooks = [m.register_forward_hook(hook) for m in modules]
+        run()
+        for h in hooks:
+            h.remove()
+        return [seen[m] for m in modules]
+
+    def hwio(conv):
+        return conv.weight.permute(2, 3, 1, 0).contiguous()
+
+    def summed(rows):
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+        total = {k: sum(r[k] for r in rows) for k in keys}
+        ops_ms = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+        total["bound_by"] = "operations" if 2 * ops_ms >= total["bound_ms"] else "bytes"
+        return total
+
+    def layer_log(name, rows):
+        """Each layer's line; fails if a measured time is under the bound,
+        which would make the bound no floor."""
+        for r in rows:
+            log(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+                f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}), "
+                f"{r['ms'] / r['bound_ms']:.1f}x the bound (library "
+                f"{r['library_ms'] / r['bound_ms']:.1f}x), {r['library_ms'] / r['ms']:.2f}x "
+                f"faster than the library; err vs plain {r['err_plain']:.1e}, vs library "
+                f"{r['err_library']:.1e} (share of the output's max)")
+        under = [r["shape"] for r in rows
+                 if min(r["ms"], r["plain_ms"], r["library_ms"]) < r["bound_ms"]]
+        require(not under, f"{name}: measured under the bound at {under}")
+
+    pred = CompiledPredictor.from_snapshot(SNAPSHOTS[0], batch_size=BATCH)
+    convs = convs_of(pred.model)
+    require(pred.folded and len(convs) == 18, "the folded UNet16 has 18 conv3x3 layers")
+    k6a_rows = []
+    with torch.inference_mode():
+        seen = capture(convs, lambda: pred.logits(images[:BATCH]))
+        for conv, (x_nchw, y_conv) in zip(convs, seen):
+            x = x_nchw.permute(0, 2, 3, 1).contiguous()
+            xl = x.permute(0, 3, 1, 2)  # channels-last NCHW view, cuDNN's NHWC kernels
+            w, b = hwio(conv), conv.bias
+            wl = conv.weight.contiguous(memory_format=torch.channels_last)
+            y = ops.conv3x3_call(x, w, b, relu=True)
+            y_plain = ops.conv3x3_call_plain(x, w, b, relu=True)
+            y_layer = torch.relu(y_conv).permute(0, 2, 3, 1)  # the model's cuDNN layer
+            scale = float(y_layer.abs().max())
+            n, h, wd, ci = x.shape
+            co = w.shape[3]
+            bound_ms, bound_by = conv_bound(n, h, wd, ci, co)
+            k6a_rows.append({
+                "shape": f"({n},{h},{wd},{ci})->{co}",
+                "err_abs": float((y - y_plain).abs().max()),
+                "err_plain": float((y - y_plain).abs().max()) / scale,
+                "err_library": float((y - y_layer).abs().max()) / scale,
+                "ms": cuda_ms(lambda: ops.conv3x3_call(x, w, b, relu=True), calls=20, windows=3),
+                "plain_ms": cuda_ms(lambda: ops.conv3x3_call_plain(x, w, b, relu=True),
+                                    calls=20, windows=3),
+                "library_ms": cuda_ms(lambda: torch.cudnn_convolution_relu(
+                    xl, wl, b, (1, 1), (1, 1), (1, 1), 1), calls=20, windows=3),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+    layer_log("K6a", k6a_rows)
+    k6a = summed(k6a_rows)
+    worst = max(max(r["err_plain"], r["err_library"]) for r in k6a_rows)
+    log(f"K6a over the 18 layers of the folded UNet16 at batch {BATCH}: kernel "
+        f"{k6a['ms']:.3f} ms, plain {k6a['plain_ms']:.3f}, cuDNN conv+bias+ReLU "
+        f"{k6a['library_ms']:.3f}, bound {k6a['bound_ms']:.3f} ({k6a['bound_by']}); worst "
+        f"error {worst:.1e} of the layer's max |y| (tol {CONV_RTOL:g})")
+    require(worst <= CONV_RTOL, "K6a disagrees with its plain version or the cuDNN layer")
+
+    def through_k6a(dc):
+        w1, w2 = hwio(dc.conv1), hwio(dc.conv2)
+
+        def forward(x):  # the folded block: relu(conv + b), twice
+            y = ops.conv3x3_bias_relu(x.permute(0, 2, 3, 1), w1, dc.conv1.bias)
+            return ops.conv3x3_bias_relu(y, w2, dc.conv2.bias).permute(0, 3, 1, 2)
+        return forward
+
+    def whole_forward(pred, blocks, patch, name, launches_of, per_forward):
+        """Masks of the predictor with every DoubleConv's forward replaced
+        by patch(block), against its own, and the main path
+        (flag_waterfalls) through them: launches, IoU."""
+        ref = pred(images)
+        ref_ms = cuda_ms(lambda: pred(images), calls=3, windows=3)
+        for dc in blocks:
+            dc.forward = patch(dc)
+        try:
+            flag_waterfalls(wf, method="model", predictor=pred)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            flags = flag_waterfalls(wf, method="model", predictor=pred)
+            torch.cuda.synchronize()
+            launches = launches_of()
+            got = pred(images)
+            k_ms = cuda_ms(lambda: pred(images), calls=3, windows=3)
+        finally:
+            for dc in blocks:
+                del dc.forward
+        agree = float((got == ref).double().mean())
+        m = evaluate_segmentation(flags, mask)
+        log(f"{name}: flag_waterfalls through the kernel: IoU {m['iou']:.4f}, {launches} "
+            f"launches in one call ({per_forward} per forward of {BATCH}); masks agree with "
+            f"the cuDNN predictor on {agree:.6f} of the pixels; predictor on 512 images "
+            f"{k_ms:.2f} ms through the kernel, {ref_ms:.2f} ms through cuDNN")
+        require(launches == per_forward * n_patches // BATCH,
+                f"{name}: the main path did not launch the kernel once per layer")
+        require(agree >= MASK_AGREE, f"{name}: masks disagree with the cuDNN predictor")
+        require(m["iou"] > 0.9, f"{name}: flags miss the injected RFI")
+        return launches
+
+    k6a_launches = whole_forward(pred, blocks_of(pred.model), through_k6a,
+                                 "K6a, folded UNet16", lambda: ops.conv3x3_call.launches, 18)
+    phases["K6a"] = time.perf_counter() - t
+
+    # -- K7 on the GroupNorm UNet16 (serving) -----------------------------------------
+    t = time.perf_counter()
+    pred = CompiledPredictor.from_snapshot(SNAPSHOTS[1], batch_size=BATCH)
+    blocks = blocks_of(pred.model)
+    require(pred.model.norm == "group" and len(blocks) == 9,
+            "the GroupNorm UNet16 has 9 DoubleConvs")
+
+    def k7_args(dc):
+        return (hwio(dc.conv1), dc.norm1.weight, dc.norm1.bias, hwio(dc.conv2),
+                dc.norm2.weight, dc.norm2.bias)
+
+    k7_rows = []
+    with torch.inference_mode():
+        seen = capture(blocks, lambda: pred.logits(images[:BATCH]))
+        for dc, (x_nchw, y_block) in zip(blocks, seen):
+            x = x_nchw.permute(0, 2, 3, 1).contiguous()
+            xl = x.permute(0, 3, 1, 2)
+            args = k7_args(dc)
+            kw = dict(num_groups=dc.norm1.num_groups, eps=dc.norm1.eps)
+            y = ops.double_conv_gn_relu(x, *args, **kw)
+            y_plain = ops.double_conv_gn_relu_plain(x, *args, **kw)
+            y_layer = y_block.permute(0, 2, 3, 1)
+            scale = float(y_layer.abs().max())
+            n, h, wd, ci = x.shape
+            co = args[0].shape[3]
+            bound_ms, bound_by = bound(
+                4 * (n * h * wd * (ci + co) + 9 * ci * co + 9 * co * co + 4 * co),
+                conv3x3_flops(n, h, wd, ci, co) + conv3x3_flops(n, h, wd, co, co))
+            k7_rows.append({
+                "shape": f"({n},{h},{wd},{ci})->{co}, {kw['num_groups']} groups",
+                "err_abs": float((y - y_plain).abs().max()),
+                "err_plain": float((y - y_plain).abs().max()) / scale,
+                "err_library": float((y - y_layer).abs().max()) / scale,
+                "ms": cuda_ms(lambda: ops.double_conv_gn_relu(x, *args, **kw), calls=20, windows=3),
+                "plain_ms": cuda_ms(lambda: ops.double_conv_gn_relu_plain(x, *args, **kw),
+                                    calls=20, windows=3),
+                "library_ms": cuda_ms(lambda: dc(xl), calls=20, windows=3),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+    layer_log("K7", k7_rows)
+    k7 = summed(k7_rows)
+    worst = max(max(r["err_plain"], r["err_library"]) for r in k7_rows)
+    log(f"K7 over the 9 DoubleConvs of the GroupNorm UNet16 at batch {BATCH}: kernel "
+        f"{k7['ms']:.3f} ms, plain {k7['plain_ms']:.3f}, DoubleConv (cuDNN + group_norm) "
+        f"{k7['library_ms']:.3f}, bound {k7['bound_ms']:.3f} ({k7['bound_by']}); worst error "
+        f"{worst:.1e} of the block's max |y| (tol {K7_RTOL:g})")
+    require(worst <= K7_RTOL, "K7 disagrees with its plain version or the DoubleConv")
+
+    def through_k7(dc):
+        args, kw = k7_args(dc), dict(num_groups=dc.norm1.num_groups, eps=dc.norm1.eps)
+        return lambda x: ops.double_conv_gn_relu(x.permute(0, 2, 3, 1), *args,
+                                                 **kw).permute(0, 3, 1, 2)
+
+    k7_launches = whole_forward(pred, blocks, through_k7, "K7, GroupNorm UNet16",
+                                lambda: ops.double_conv_gn_relu.launches, 9)
+    phases["K7"] = time.perf_counter() - t
+
+    # -- K6a + K6b in a float32 UNet32 training step -----------------------------------
+    t = time.perf_counter()
+    x_train, y_train = images_train[0], labels_train[0]  # 128 static-prep patches
+    ref_state = create_train_state(UNet(init_features=32, norm="batch"), seed=3)
+    k_model = copy.deepcopy(ref_state.model)
+    m64 = copy.deepcopy(ref_state.model).double()
+    m64.dtype = torch.float64  # the same step in float64 (cuDNN), the yardstick
+    grads_out = {}
+
+    def through_conv3x3(conv):
+        def forward(x):
+            y = ops.conv3x3(x.permute(0, 2, 3, 1), conv.weight.permute(2, 3, 1, 0), conv.bias)
+            if y.requires_grad:
+                saved_inputs[conv] = x.permute(0, 2, 3, 1).detach()
+                y.register_hook(lambda g: grads_out.__setitem__(conv, g.contiguous()))
+            return y.permute(0, 3, 1, 2)
+        return forward
+
+    saved_inputs = {}
+    k_convs = convs_of(k_model)
+    for conv in k_convs:
+        conv.forward = through_conv3x3(conv)
+
+    def loss_and_grads(model):
+        model.train()
+        x = x_train.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        loss = bce_dice_loss(model(x)[:, 0], y_train)
+        return loss, torch.autograd.grad(loss, list(model.parameters()))
+
+    reset_counts()
+    loss_k, grads_k = loss_and_grads(k_model)
+    torch.cuda.synchronize()
+    k6a_train, k6b_launches = ops.conv3x3_call.launches, ops.conv3x3_dw.launches
+    loss_r, grads_r = loss_and_grads(ref_state.model)
+    step_ms = cuda_ms(lambda: loss_and_grads(k_model), calls=3, windows=3)
+    ref_ms = cuda_ms(lambda: loss_and_grads(ref_state.model), calls=3, windows=3)
+    grads_64 = loss_and_grads(m64)[1]
+    del m64
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    names = [n for n, _ in k_model.named_parameters()]
+    overall = rel(torch.cat([g.flatten() for g in grads_k]),
+                  torch.cat([g.flatten() for g in grads_r]))
+    to_64 = {n: (rel(a, c), rel(b, c)) for n, a, b, c in zip(names, grads_k, grads_r, grads_64)
+             if float(c.norm()) > 0}
+    worst = max(to_64, key=lambda n: to_64[n][0] / max(2 * to_64[n][1], GRAD_F64_FLOOR))
+    loss_k, loss_r = float(loss_k.detach()), float(loss_r.detach())
+    log(f"float32 UNet32 step at batch {TRAIN_BATCH} through K6a + K6b: loss {loss_k:.7f} "
+        f"vs cuDNN {loss_r:.7f} (rel {abs(loss_k - loss_r) / abs(loss_r):.1e}, tol "
+        f"{TRAIN_LOSS_RTOL:g}); all gradients off cuDNN's by {overall:.2e} in relative L2 "
+        f"(tol {GRAD_RTOL:g}); off float64, per parameter, median "
+        f"{statistics.median(v[0] for v in to_64.values()):.1e} (cuDNN "
+        f"{statistics.median(v[1] for v in to_64.values()):.1e}), nearest its bound "
+        f"{worst}: {to_64[worst][0]:.2e} against cuDNN's {to_64[worst][1]:.2e} (tol 2x cuDNN's "
+        f"or {GRAD_F64_FLOOR:g}); launches K6a {k6a_train} (18 forward + 17 dx), K6b "
+        f"{k6b_launches}; forward+backward {step_ms:.2f} ms, cuDNN {ref_ms:.2f} ms")
+    log("  per parameter, off float64 (K6a + K6b, cuDNN): " + ", ".join(
+        f"{n} {a:.1e} {b:.1e}" for n, (a, b) in to_64.items()))
+    require(abs(loss_k - loss_r) <= TRAIN_LOSS_RTOL * abs(loss_r),
+            "K6a/K6b step: loss disagrees with cuDNN's")
+    require(overall <= GRAD_RTOL, "K6a/K6b step: gradients disagree with cuDNN's")
+    require(all(a <= max(2 * b, GRAD_F64_FLOOR) for a, b in to_64.values()),
+            f"K6a/K6b step: the gradient of {worst} is far from float64")
+    require(k6a_train == 35 and k6b_launches == 18,
+            "the training step did not run K6a forward and dx and K6b once per layer")
+
+    k6b_rows, deterministic = [], True
+    with torch.no_grad():
+        for conv in k_convs:
+            x, g = saved_inputs[conv], grads_out[conv]
+            xl, gl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            wl = conv.weight.contiguous(memory_format=torch.channels_last)
+            dw = ops.conv3x3_dw(x, g)
+            deterministic &= bool(torch.equal(dw, ops.conv3x3_dw(x, g)))
+            dw_plain = ops.conv3x3_dw_plain(x, g)
+
+            def library():
+                return torch.ops.aten.convolution_backward(
+                    gl, xl, wl, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                    [False, True, False])[1]
+            dw_lib = library().permute(2, 3, 1, 0)
+            scale = float(dw_lib.abs().max())
+            n, h, wd, ci = x.shape
+            co = g.shape[3]
+            bound_ms, bound_by = bound(4 * (n * h * wd * (ci + co) + 9 * ci * co),
+                                       conv3x3_flops(n, h, wd, ci, co))
+            k6b_rows.append({
+                "shape": f"({n},{h},{wd},{ci})x({co})",
+                "err_abs": float((dw - dw_plain).abs().max()),
+                "err_plain": float((dw - dw_plain).abs().max()) / scale,
+                "err_library": float((dw - dw_lib).abs().max()) / scale,
+                "ms": cuda_ms(lambda: ops.conv3x3_dw(x, g), calls=10, windows=3),
+                "plain_ms": cuda_ms(lambda: ops.conv3x3_dw_plain(x, g), calls=10, windows=3),
+                "library_ms": cuda_ms(library, calls=10, windows=3),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+    for conv in k_convs:
+        del conv.forward
+    layer_log("K6b", k6b_rows)
+    k6b = summed(k6b_rows)
+    worst = max(max(r["err_plain"], r["err_library"]) for r in k6b_rows)
+    log(f"K6b over the 18 layers of UNet32 at batch {TRAIN_BATCH}: kernel {k6b['ms']:.3f} ms, "
+        f"plain {k6b['plain_ms']:.3f}, cuDNN weight gradient {k6b['library_ms']:.3f}, bound "
+        f"{k6b['bound_ms']:.3f} ({k6b['bound_by']}); worst error {worst:.1e} of max |dW| (tol "
+        f"{DW_RTOL:g}); two runs bit-equal: {deterministic}")
+    require(worst <= DW_RTOL, "K6b disagrees with its plain version or cuDNN")
+    require(deterministic, "K6b is not deterministic")
+    phases["K6a+K6b train"] = time.perf_counter() - t
+
+    # -- train -> export -> serve ---------------------------------------------------
+    t = time.perf_counter()
+    out_dir = Path("build/chip_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    def static_dataset(seed, k):
+        wf_s, mask_s, _ = sample_fn(N_WATERFALLS, torch.Generator(device=dev).manual_seed(seed))
+        return Preprocessor(wf_s, flags=mask_s).create_dataset(
+            patch_size=PATCH, use_custom_flags=True, seed=0, static_num_patches=k)
+
+    trainer = Trainer(UNet(init_features=32, norm="batch", dtype=torch.bfloat16),
+                      checkpoint_dir=out_dir, seed=1)
+    result = trainer.fit(static_dataset(SEED + 1000, K_STATIC), static_dataset(SEED + 2000, 256),
+                         num_epochs=1, batch_size=TRAIN_BATCH, fused_steps=STEPS)
+    rec = result["history"][0]
+    log(f"Trainer.fit, 1 epoch of {K_STATIC} at batch {TRAIN_BATCH} (bf16): train loss "
+        f"{rec['train_loss']:.4f}, val loss {rec['val_loss']:.4f}, val IoU {rec['val_iou']:.4f}, "
+        f"{rec['seconds']:.2f} s; {trainer.state.step} steps")
+    require(trainer.state.step == STEPS and np.isfinite(rec["val_loss"]),
+            "Trainer.fit did not take one epoch of finite steps")
+    snapshot = export_params(trainer.state, out_dir / "unet32.npz")
+    served = CompiledPredictor.from_snapshot(snapshot, batch_size=BATCH)
+    flags = flag_waterfalls(wf, method="model", predictor=served)
+    # the same float32 parameters computing in float32: a checkpoint of the
+    # bf16 trainer restored into a float32 UNet32
+    path = trainer.save_checkpoint("smoke", 1, rec["train_loss"])
+    f32 = Trainer(UNet(init_features=32, norm="batch"), seed=7)
+    f32.restore(path)
+
+    def trainer_flags(tr, tta=False):
+        return P.unpatchify_batch(tr.predict(images, batch_size=BATCH, tta=tta),
+                                  N_WATERFALLS, SIDE, SIDE)
+
+    agree = float((flags == trainer_flags(f32)).double().mean())
+    agree_bf16 = float((flags == trainer_flags(trainer)).double().mean())
+    tta = trainer.predict(images[:BATCH], batch_size=BATCH, tta=True)
+    log(f"served snapshot (float32, BatchNorm folded): flags agree with Trainer.predict "
+        f"on {agree:.6f} of the pixels (the trained weights in float32, unfolded; tol "
+        f"{MASK_AGREE:g}) and on {agree_bf16:.6f} with the bf16 trainer's own predict "
+        f"(not checked: bf16 rounding moves the pixels near the threshold of a model "
+        f"trained for {STEPS} steps); predict(tta=True) {tuple(tta.shape)}, flagged share "
+        f"{float(tta.float().mean()):.4f}")
+    require(served.folded and served.model.depth == 4, "the snapshot did not load as UNet32")
+    require(agree >= MASK_AGREE, "the served snapshot disagrees with Trainer.predict")
+    require(tta.shape == (BATCH, PATCH, PATCH) and tta.dtype == torch.bool, "predict(tta=True)")
+
+    restored = Trainer(UNet(init_features=32, norm="batch", dtype=torch.bfloat16), seed=7)
+    require(restored.restore(path) == 1, "restore did not return the epoch")
+    sd_a, sd_b = trainer.state.model.state_dict(), restored.state.model.state_dict()
+    same = all(torch.equal(sd_a[k], sd_b[k]) for k in sd_a) and all(
+        torch.equal(a, b) for a, b in zip(trainer.state.mu + trainer.state.nu,
+                                          restored.state.mu + restored.state.nu))
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        batch = (images_train[1], labels_train[1])
+        train_step(trainer.state, *batch)
+        train_step(restored.state, *batch)
+        torch.cuda.synchronize()
+        next_same = all(torch.equal(a, b) for a, b in zip(trainer.state.params,
+                                                          restored.state.params))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    log(f"checkpoint {path.name}: restored state bit-equal {same}; the next step "
+        f"(deterministic algorithms) bit-equal {next_same}")
+    require(same and next_same, "a restored checkpoint differs from the saved state")
+    shutil.rmtree(out_dir)  # some 300 MB of checkpoints
+    phases["train-export-serve"] = time.perf_counter() - t
+
     log("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total wall time {time.perf_counter() - T_START:.1f} s")
     static_json = []
@@ -672,6 +1110,17 @@ def main():
          "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound * 1e3,
          "bound_by": "bytes", "library_ms": None},
     ]
+    for name, src, line, rows, total, launches in (
+            ("conv3x3_call", "conv3x3.cu", "conv3x3.py:113", k6a_rows, k6a, k6a_launches),
+            ("conv3x3_dw", "conv3x3.cu", "conv3x3.py:164", k6b_rows, k6b, k6b_launches),
+            ("double_conv_gn_relu", "double_conv_gn.cu", "fused_doubleconv.py:156", k7_rows,
+             k7, k7_launches)):
+        kernels.append(
+            {"name": name, "route": "cuda", "source": f"rfi_toolbox_tpu_torch/ops/csrc/{src}",
+             "replaces": f"rfi_toolbox_tpu/ops/{line}", "launches": launches,
+             "max_abs_err": max(r["err_abs"] for r in rows), **total})
+    print(json.dumps({"layers": {"conv3x3_call": k6a_rows, "conv3x3_dw": k6b_rows,
+                                 "double_conv_gn_relu": k7_rows}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

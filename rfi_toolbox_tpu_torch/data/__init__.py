@@ -1,5 +1,5 @@
 """In-memory dataset container."""
 
-from .batched_dataset import ArrayDataset
+from .batched_dataset import ArrayDataset, TorchDataset
 
-__all__ = ["ArrayDataset"]
+__all__ = ["ArrayDataset", "TorchDataset"]

@@ -8,6 +8,7 @@ from .metrics import (
     compute_recall,
     confusion_counts,
     evaluate_segmentation,
+    evaluate_segmentation_batch,
 )
 
 __all__ = [
@@ -18,4 +19,5 @@ __all__ = [
     "compute_f1",
     "compute_dice",
     "evaluate_segmentation",
+    "evaluate_segmentation_batch",
 ]

@@ -24,6 +24,7 @@ __all__ = [
     "compute_f1",
     "compute_dice",
     "evaluate_segmentation",
+    "evaluate_segmentation_batch",
 ]
 
 
@@ -109,3 +110,17 @@ def evaluate_segmentation(pred, true):
     tp, fp, fn, _ = confusion_counts(pred, true)
     return {k: float(v) for k, v in _all(tp, fp, fn).items()}
 
+
+
+def evaluate_segmentation_batch(pred, true):
+    """Per-sample metrics of (N, ...) mask stacks: a dict of float32
+    tensors of shape (N,) with keys 'iou', 'precision', 'recall', 'f1',
+    'dice', on the masks' device."""
+    pred = torch.as_tensor(pred).bool()
+    true = torch.as_tensor(true, device=pred.device).bool()
+    n = pred.shape[0]
+    pred, true = pred.reshape(n, -1), true.reshape(n, -1)
+    tp = (pred & true).sum(1).to(torch.float32)
+    fp = (pred & ~true).sum(1).to(torch.float32)
+    fn = (~pred & true).sum(1).to(torch.float32)
+    return _all(tp, fp, fn)

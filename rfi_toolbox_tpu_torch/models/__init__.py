@@ -1,6 +1,6 @@
 """Segmentation models (PyTorch)."""
 
-from .convert import load_params, params_from_flax, unet_from_snapshot
+from .convert import load_params, params_from_flax, params_to_flax, unet_from_snapshot
 from .folding import fold_batchnorm
 from .unet import (
     ConvTranspose2x2,
@@ -8,12 +8,20 @@ from .unet import (
     DoubleConv,
     Encoder,
     UNet,
+    UNetBigger,
+    UNetDifferentActivation,
+    UNetOverfit,
+    create_model,
     depth_to_space,
     space_to_depth,
 )
 
 __all__ = [
     "UNet",
+    "UNetBigger",
+    "UNetOverfit",
+    "UNetDifferentActivation",
+    "create_model",
     "DoubleConv",
     "Encoder",
     "ConvTranspose2x2",
@@ -23,5 +31,6 @@ __all__ = [
     "fold_batchnorm",
     "load_params",
     "params_from_flax",
+    "params_to_flax",
     "unet_from_snapshot",
 ]

@@ -4,7 +4,9 @@
 ``rfi_toolbox_tpu.train.export_params`` writes (``pretrained/*.npz``) with
 numpy alone. ``params_from_flax`` turns the nested Flax parameter and
 batch-statistics dicts into a ``state_dict`` for
-:class:`rfi_toolbox_tpu_torch.models.unet.UNet`:
+:class:`rfi_toolbox_tpu_torch.models.unet.UNet`, and ``params_to_flax``
+turns a model back into them, exactly (the port's ``export_params``
+writes them):
 
 - conv kernels go from HWIO to OIHW;
 - the transposed-conv kernel is mirrored (``kernel[::-1, ::-1]``), as the
@@ -18,7 +20,8 @@ import json
 import numpy as np
 import torch
 
-__all__ = ["load_params", "params_from_flax", "unet_from_snapshot"]
+__all__ = ["load_params", "params_from_flax", "params_to_flax",
+           "unet_from_snapshot"]
 
 
 def load_params(path):
@@ -104,25 +107,82 @@ def params_from_flax(params, batch_stats, model):
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
-def unet_from_snapshot(path):
-    """Build the port's UNet for an ``export_params`` snapshot and load its
-    weights. The architecture comes from the metadata (``init_features``,
-    ``norm``, ``space_to_depth``) and the input channels from the first
-    conv kernel.
+def _conv_to(sd, prefix):
+    p = {"kernel": np.transpose(sd[prefix + ".weight"], (2, 3, 1, 0))}
+    if prefix + ".bias" in sd:
+        p["bias"] = sd[prefix + ".bias"]
+    return p
 
-    Returns ``(model, metadata)``; the model is on the CPU in eval mode.
+
+def _double_conv_to(sd, prefix, norm):
+    p, s = {}, {}
+    for i in (0, 1):
+        p[f"Conv_{i}"] = _conv_to(sd, f"{prefix}.conv{i + 1}")
+        bn = f"{prefix}.norm{i + 1}"
+        if norm == "none":
+            continue
+        kind = "BatchNorm" if norm == "batch" else "GroupNorm"
+        p[f"{kind}_{i}"] = {"scale": sd[bn + ".weight"], "bias": sd[bn + ".bias"]}
+        if norm == "batch":
+            s[f"BatchNorm_{i}"] = {"mean": sd[bn + ".running_mean"],
+                                   "var": sd[bn + ".running_var"]}
+    return p, s
+
+
+def params_to_flax(model):
+    """The port's UNet -> ``(params, batch_stats)``, nested dicts of
+    float32 numpy arrays keyed as the Flax UNet's variables: the inverse of
+    :func:`params_from_flax` (conv kernels OIHW -> HWIO, the transposed
+    conv's kernel mirrored back, BatchNorm's running statistics under
+    ``batch_stats``). ``batch_stats`` is empty without BatchNorm."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    params, stats = {}, {}
+
+    def put(name, prefix):
+        p, s = _double_conv_to(sd, prefix, model.norm)
+        params[name] = {"DoubleConv_0": p}
+        if s:
+            stats[name] = {"DoubleConv_0": s}
+
+    for i in range(len(model.encoders)):
+        put(f"Encoder_{i}", f"encoders.{i}.block")
+    p, s = _double_conv_to(sd, "bottleneck", model.norm)
+    params["DoubleConv_0"] = p
+    if s:
+        stats["DoubleConv_0"] = s
+    for i in range(len(model.decoders)):
+        put(f"Decoder_{i}", f"decoders.{i}.block")
+        up = sd[f"decoders.{i}.up.weight"]  # (Cin, Cout, 2, 2)
+        params[f"Decoder_{i}"]["ConvTranspose_0"] = {
+            "kernel": np.ascontiguousarray(np.transpose(up, (2, 3, 0, 1))[::-1, ::-1]),
+            "bias": sd[f"decoders.{i}.up.bias"],
+        }
+    params["Conv_0"] = _conv_to(sd, "head")
+    return params, stats
+
+
+def unet_from_snapshot(path, model=None):
+    """Load an ``export_params`` snapshot into ``model``, or into the
+    port's UNet that the snapshot describes: the depth from its
+    ``Encoder_i`` keys, the input channels and ``init_features`` from the
+    first conv kernel, ``norm`` and ``space_to_depth`` from its metadata.
+
+    Returns ``(model, metadata)``; a model built here is on the CPU in
+    eval mode.
     """
     from .unet import UNet
 
     params, stats, meta = load_params(path)
-    s2d = bool(meta.get("space_to_depth", False))
-    first = params["Encoder_0"]["DoubleConv_0"]["Conv_0"]["kernel"]
-    cfg = {
-        "in_channels": first.shape[2] // (4 if s2d else 1),
-        "init_features": int(meta.get("init_features", 32)),
-        "norm": meta.get("norm", "batch"),
-        "space_to_depth": s2d,
-    }
-    model = UNet(**cfg)
+    if model is None:
+        s2d = bool(meta.get("space_to_depth", False))
+        first = params["Encoder_0"]["DoubleConv_0"]["Conv_0"]["kernel"]
+        encoders = sum(k.startswith("Encoder_") for k in params)
+        model = UNet(
+            in_channels=first.shape[2] // (4 if s2d else 1),
+            init_features=first.shape[3] // (2 if s2d else 1),
+            depth=encoders + (1 if s2d else 0),
+            norm=meta.get("norm", "batch"),
+            space_to_depth=s2d,
+        ).eval()
     model.load_state_dict(params_from_flax(params, stats, model))
-    return model.eval(), meta
+    return model, meta

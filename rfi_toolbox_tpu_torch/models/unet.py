@@ -2,6 +2,8 @@
 
 Counterpart of ``rfi_toolbox_tpu/models/unet.py`` (``DoubleConv``,
 ``Encoder``, ``ConvTranspose2x2``, ``Decoder``, ``_UNetBase``/``UNet``,
+the variants ``UNetBigger``, ``UNetOverfit`` and
+``UNetDifferentActivation``, ``create_model``,
 ``space_to_depth``/``depth_to_space``). The modules take and return
 NCHW tensors, PyTorch's layout; the public NHWC layout of images is kept
 by the callers (:mod:`rfi_toolbox_tpu_torch.serving`).
@@ -46,6 +48,10 @@ __all__ = [
     "ConvTranspose2x2",
     "Decoder",
     "UNet",
+    "UNetBigger",
+    "UNetOverfit",
+    "UNetDifferentActivation",
+    "create_model",
     "space_to_depth",
     "depth_to_space",
     "flax_init_",
@@ -119,27 +125,29 @@ def _norm(kind, features):
 
 
 class DoubleConv(nn.Module):
-    """(Conv3x3 -> norm -> ReLU) x 2."""
+    """(Conv3x3 -> norm -> activation) x 2; the activation is ReLU unless
+    another callable is given."""
 
-    def __init__(self, in_channels, features, norm="batch"):
+    def __init__(self, in_channels, features, norm="batch", activation=torch.relu):
         super().__init__()
         bias = norm == "none"
+        self.activation = activation
         self.conv1 = Conv2d(in_channels, features, 3, padding=1, bias=bias)
         self.norm1 = _norm(norm, features)
         self.conv2 = Conv2d(features, features, 3, padding=1, bias=bias)
         self.norm2 = _norm(norm, features)
 
     def forward(self, x):
-        x = torch.relu(self.norm1(self.conv1(x)))
-        return torch.relu(self.norm2(self.conv2(x)))
+        x = self.activation(self.norm1(self.conv1(x)))
+        return self.activation(self.norm2(self.conv2(x)))
 
 
 class Encoder(nn.Module):
     """DoubleConv then 2x2 max-pool; returns (pooled, skip)."""
 
-    def __init__(self, in_channels, features, norm="batch"):
+    def __init__(self, in_channels, features, norm="batch", activation=torch.relu):
         super().__init__()
-        self.block = DoubleConv(in_channels, features, norm)
+        self.block = DoubleConv(in_channels, features, norm, activation)
 
     def forward(self, x):
         skip = self.block(x)
@@ -162,10 +170,10 @@ class ConvTranspose2x2(nn.ConvTranspose2d):
 class Decoder(nn.Module):
     """Upsample, concatenate ``[up, skip]``, DoubleConv."""
 
-    def __init__(self, in_channels, features, norm="batch"):
+    def __init__(self, in_channels, features, norm="batch", activation=torch.relu):
         super().__init__()
         self.up = ConvTranspose2x2(in_channels, features)
-        self.block = DoubleConv(2 * features, features, norm)
+        self.block = DoubleConv(2 * features, features, norm, activation)
 
     def forward(self, x, skip):
         return self.block(torch.cat([self.up(x), skip], dim=1))
@@ -200,11 +208,15 @@ class UNet(nn.Module):
         space_to_depth: the 2x2-packed variant (see module docstring).
         dtype: compute dtype (float32 or bfloat16); parameters stay
             float32.
+        activation: the DoubleConvs' activation, a callable on tensors
+            (``torch.relu``; e.g. ``nn.functional.leaky_relu``).
+        final_sigmoid: apply a sigmoid to the output (``UNetOverfit``).
     """
 
     def __init__(self, in_channels=3, out_channels=1, init_features=32,
                  depth=4, norm="batch", space_to_depth=False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, activation=torch.relu,
+                 final_sigmoid=False):
         super().__init__()
         self.dtype = dtype
         f = init_features
@@ -214,6 +226,8 @@ class UNet(nn.Module):
         self.depth = depth
         self.norm = norm
         self.space_to_depth = space_to_depth
+        self.activation = activation
+        self.final_sigmoid = final_sigmoid
         if space_to_depth:
             stage_features = [f * 2 ** (i + 1) for i in range(depth - 1)]
             c = 4 * in_channels
@@ -222,13 +236,13 @@ class UNet(nn.Module):
             c = in_channels
         self.encoders = nn.ModuleList()
         for feats in stage_features:
-            self.encoders.append(Encoder(c, feats, norm))
+            self.encoders.append(Encoder(c, feats, norm, activation))
             c = feats
-        self.bottleneck = DoubleConv(c, f * 2**depth, norm)
+        self.bottleneck = DoubleConv(c, f * 2**depth, norm, activation)
         c = f * 2**depth
         self.decoders = nn.ModuleList()
         for feats in reversed(stage_features):
-            self.decoders.append(Decoder(c, feats, norm))
+            self.decoders.append(Decoder(c, feats, norm, activation))
             c = feats
         head = 4 * out_channels if space_to_depth else out_channels
         self.head = Conv2d(c, head, 1)
@@ -243,11 +257,13 @@ class UNet(nn.Module):
             "norm": self.norm,
             "space_to_depth": self.space_to_depth,
             "dtype": self.dtype,
+            "activation": self.activation,
+            "final_sigmoid": self.final_sigmoid,
         }
 
     def forward(self, x):
-        """(N, C, H, W) float -> (N, out_channels, H, W) float32 logits,
-        computed in :attr:`dtype`."""
+        """(N, C, H, W) float -> (N, out_channels, H, W) float32 logits
+        (probabilities with ``final_sigmoid``), computed in :attr:`dtype`."""
         x = x.to(self.dtype)
         if self.space_to_depth:
             x = space_to_depth(x)
@@ -260,7 +276,56 @@ class UNet(nn.Module):
             x = dec(x, skip)
         x = self.head(x)
         x = depth_to_space(x) if self.space_to_depth else x
-        return x.to(torch.float32)
+        x = x.to(torch.float32)
+        return torch.sigmoid(x) if self.final_sigmoid else x
+
+
+class UNetBigger(UNet):
+    """5-stage UNet (``rfi_toolbox_tpu.models.UNetBigger``)."""
+
+    def __init__(self, in_channels=3, out_channels=1, init_features=32, depth=5,
+                 **kwargs):
+        super().__init__(in_channels, out_channels, init_features, depth, **kwargs)
+
+
+class UNetOverfit(UNet):
+    """5-stage, 128-feature UNet with a sigmoid output
+    (``rfi_toolbox_tpu.models.UNetOverfit``)."""
+
+    def __init__(self, in_channels=3, out_channels=1, init_features=128, depth=5,
+                 final_sigmoid=True, **kwargs):
+        super().__init__(in_channels, out_channels, init_features, depth,
+                         final_sigmoid=final_sigmoid, **kwargs)
+
+
+class UNetDifferentActivation(UNet):
+    """4-stage UNet whose activation is the caller's
+    (``rfi_toolbox_tpu.models.UNetDifferentActivation``).
+
+    >>> model = UNetDifferentActivation(activation=nn.functional.leaky_relu)
+    """
+
+
+_MODEL_REGISTRY = {
+    "unet": UNet,
+    "unet_bigger": UNetBigger,
+    "unet_overfit": UNetOverfit,
+    "unet_activation": UNetDifferentActivation,
+}
+
+
+def create_model(model_type="unet", out_channels=1, init_features=32,
+                 dtype=torch.float32, **kwargs):
+    """The UNet named ``model_type`` (the CLI's model names), as
+    ``rfi_toolbox_tpu.models.create_model`` builds it."""
+    if model_type not in _MODEL_REGISTRY:
+        raise ValueError(
+            f"Unknown model type: {model_type}. "
+            f"Choose from {sorted(_MODEL_REGISTRY)}"
+        )
+    cls = _MODEL_REGISTRY[model_type]
+    return cls(out_channels=out_channels, init_features=init_features,
+               dtype=dtype, **kwargs)
 
 
 @torch.no_grad()

@@ -9,7 +9,20 @@ launches its kernel for a CUDA tensor; the kernels are built by
 - K3 ``fused_plane_gather_transform`` (csrc/plane_gather.cu)
 - K4 ``fused_extract_channels`` (csrc/fused_channels.cu)
 - K5 ``mad_flag_patches`` (csrc/mad_flags.cu)
+- K6a ``conv3x3_call`` (csrc/conv3x3.cu, csrc/conv3x3_tile.cuh), behind
+  the differentiable ``conv3x3_bias_relu`` and ``conv3x3``
+- K6b ``conv3x3_dw`` (csrc/conv3x3.cu), their weight gradient
+- K7 ``double_conv_gn_relu`` (csrc/double_conv_gn.cu)
 """
+
+from .conv3x3 import (
+    conv3x3,
+    conv3x3_bias_relu,
+    conv3x3_call,
+    conv3x3_call_plain,
+    conv3x3_dw,
+    conv3x3_dw_plain,
+)
 
 from .fused_channels import (
     fused_extract_channel_planes,
@@ -21,6 +34,7 @@ from .fused_channels import (
     fused_plane_gather_transform,
     fused_plane_gather_transform_plain,
 )
+from .fused_doubleconv import double_conv_gn_relu, double_conv_gn_relu_plain
 from .mad_flags import mad_flag_patches, mad_flag_patches_plain
 
 __all__ = [
@@ -34,4 +48,12 @@ __all__ = [
     "fused_plane_gather_transform_plain",
     "mad_flag_patches",
     "mad_flag_patches_plain",
+    "conv3x3",
+    "conv3x3_bias_relu",
+    "conv3x3_call",
+    "conv3x3_call_plain",
+    "conv3x3_dw",
+    "conv3x3_dw_plain",
+    "double_conv_gn_relu",
+    "double_conv_gn_relu_plain",
 ]

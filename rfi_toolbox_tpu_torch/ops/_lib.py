@@ -34,6 +34,7 @@ NVCC_FLAGS = (
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PI, _PL = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
 # C entry point -> argtypes; every one returns a cudaError_t as int
 _SIGNATURES = {
     # in, out, n, h, w, is_complex, stream
@@ -48,6 +49,18 @@ _SIGNATURES = {
     # phase_out, m, k, h, stream
     "rfi_fused_plane_gather_transform": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, w, b (or None), y, n, h, w, ci, co, relu, stream
+    "rfi_conv3x3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # n, h, w, ci, co, out: splits
+    "rfi_conv3x3_dw_splits": (_I, _I, _I, _I, _I, _PI),
+    # x, g, partial, dw, n, h, w, ci, co, splits, stream
+    "rfi_conv3x3_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # n, h, w, co, groups, out: double2 slots of each stats scratch
+    "rfi_double_conv_gn_workspace": (_I, _I, _I, _I, _I, _PL),
+    # x, w1, g1, b1, w2, g2, b2, mid, out, stats1, stats2, n, h, w, ci, co,
+    # groups, eps, stream
+    "rfi_double_conv_gn": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

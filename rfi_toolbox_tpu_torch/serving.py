@@ -18,7 +18,23 @@ from .models.convert import unet_from_snapshot
 from .models.folding import fold_batchnorm
 from .utils.device import resolve_device, set_tf32
 
-__all__ = ["CompiledPredictor"]
+__all__ = ["CompiledPredictor", "predict_mask"]
+
+
+def predict_mask(logits_fn, images, threshold, tta=False):
+    """``sigmoid(logits_fn(images)) > threshold`` for (B, H, W, C) images.
+    With ``tta`` the four flips (identity, flip H, flip W, both) run as
+    one batch of 4B and their probabilities, flipped back, are averaged
+    before the cut, as the JAX ``_predict_fwd_tta`` does."""
+    if not tta:
+        return torch.sigmoid(logits_fn(images)) > threshold
+    b = images.shape[0]
+    variants = torch.cat([images, images.flip(1), images.flip(2),
+                          images.flip(1, 2)])
+    p = torch.sigmoid(logits_fn(variants))
+    mean = (p[:b] + p[b:2 * b].flip(1) + p[2 * b:3 * b].flip(2)
+            + p[3 * b:].flip(1, 2)) / 4
+    return mean > threshold
 
 
 class CompiledPredictor:
@@ -56,11 +72,13 @@ class CompiledPredictor:
         self.model = model.to(self.device).eval()
 
     @classmethod
-    def from_snapshot(cls, path, device=None, **kwargs):
-        """Build from an ``export_params`` ``.npz`` snapshot. The UNet's
-        architecture, the input channels and the threshold
-        (``best_threshold``) default from the snapshot's metadata."""
-        model, meta = unet_from_snapshot(path)
+    def from_snapshot(cls, path, model=None, device=None, **kwargs):
+        """Build from an ``export_params`` ``.npz`` snapshot. ``model``, the
+        port's UNet to load the weights into (e.g. a ``UNetBigger``),
+        defaults to the UNet the snapshot describes
+        (``models.unet_from_snapshot``). The input channels and the threshold
+        (``best_threshold``) default from the snapshot too."""
+        model, meta = unet_from_snapshot(path, model)
         kwargs.setdefault("input_shape", (128, 128, model.in_channels))
         if "best_threshold" in meta:
             kwargs.setdefault("threshold", float(meta["best_threshold"]))
@@ -73,15 +91,7 @@ class CompiledPredictor:
             return self.model(images.permute(0, 3, 1, 2))[:, 0]
 
     def _mask(self, images):
-        if not self.tta:
-            return torch.sigmoid(self.logits(images)) > self.threshold
-        b = images.shape[0]
-        variants = torch.cat([images, images.flip(1), images.flip(2),
-                              images.flip(1, 2)])
-        p = torch.sigmoid(self.logits(variants))
-        mean = (p[:b] + p[b:2 * b].flip(1) + p[2 * b:3 * b].flip(2)
-                + p[3 * b:].flip(1, 2)) / 4
-        return mean > self.threshold
+        return predict_mask(self.logits, images, self.threshold, self.tta)
 
     def __call__(self, images):
         """(N, H, W, C) tensor or array -> (N, H, W) bool tensor on the

@@ -1,10 +1,22 @@
-"""Training: losses, the optimiser state and the train steps."""
+"""Training: losses, the optimiser state, the train steps and ``Trainer``."""
 
 from .losses import bce_dice_loss, bce_with_logits_loss, dice_loss
-from .trainer import TrainState, create_train_state, eval_step, train_step, train_steps
+from .trainer import (
+    Trainer,
+    TrainState,
+    create_train_state,
+    eval_step,
+    export_params,
+    load_params,
+    train_step,
+    train_steps,
+)
 
 __all__ = [
     "TrainState",
+    "Trainer",
+    "export_params",
+    "load_params",
     "create_train_state",
     "train_step",
     "train_steps",

@@ -1,18 +1,20 @@
-"""Training steps on the card: the loss, clip-by-global-norm and AdamW.
+"""Training on the card: the train steps, the optimiser, and ``Trainer``.
 
-Counterpart of ``rfi_toolbox_tpu/train/trainer.py`` (``create_train_state``,
-``train_step``, ``train_steps``, ``eval_step``; ``Trainer.fit``, its
-checkpoints, ``predict`` and ``export_params`` are not ported yet).
+Counterpart of ``rfi_toolbox_tpu/train/trainer.py``: ``create_train_state``,
+``train_step``, ``train_steps``, ``eval_step``, ``Trainer`` (``fit``,
+checkpoints, ``predict``) without the device mesh, ``export_params`` and
+``load_params``.
 
 The optimiser is optax's ``chain(clip_by_global_norm(1.0),
 adamw(1e-4, weight_decay=1e-5))``, written out so that its numbers
 follow optax and not ``torch.optim``:
 
-- the gradients are scaled by ``max_norm / norm`` only where the global
+- the gradients become ``(g / norm) * max_norm`` only where the global
   norm is not below ``max_norm``, with no epsilon (``clip_grad_norm_``
   adds 1e-6);
 - Adam with b1 0.9, b2 0.999 and eps 1e-8 added outside the square root
-  of the bias-corrected second moment;
+  of the bias-corrected second moment, the bias corrections ``1 -
+  b**step`` computed in float32 as optax computes them;
 - decoupled weight decay on the parameters before the update, scaled by
   the learning rate with the Adam step.
 
@@ -22,16 +24,30 @@ kernels and its activations are kept in the channels-last layout
 NHWC kernels without transposes, and BatchNorm its channels-last
 kernels. BatchNorm running statistics update in the forward of each
 training step, as Flax's mutable ``batch_stats`` do.
+
+Checkpoints are the port's own (``torch.save`` of the model's
+``state_dict``, Adam's moments, the step, epoch and loss): Orbax is
+JAX-only. ``export_params`` writes the JAX package's ``.npz`` inference
+snapshot, which both packages' ``load_params`` read.
 """
 
+import json
+import time
+from pathlib import Path
+
+import numpy as np
 import torch
 
+from ..data.batched_dataset import ArrayDataset
+from ..evaluation.metrics import evaluate_segmentation_batch
+from ..models.convert import load_params, params_to_flax
 from ..models.unet import flax_init_
+from ..serving import predict_mask
 from ..utils.device import resolve_device
 from .losses import bce_dice_loss
 
-__all__ = ["TrainState", "create_train_state", "train_step", "train_steps",
-           "eval_step"]
+__all__ = ["TrainState", "Trainer", "create_train_state", "train_step",
+           "train_steps", "eval_step", "export_params", "load_params"]
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults
 
@@ -67,20 +83,33 @@ class TrainState:
         """One optimiser step, in place, without a host sync."""
         self.step += 1
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        factor = torch.where(norm < self.clip_norm, 1.0, self.clip_norm / norm)
-        grads = torch._foreach_mul(grads, factor)
+        # optax: t if norm < max_norm else (t / norm) * max_norm; below the
+        # threshold the divisor and the factor are both exactly 1
+        below = norm < self.clip_norm
+        grads = torch._foreach_div(grads, torch.where(below, 1.0, norm))
+        torch._foreach_mul_(grads, torch.where(below, 1.0, self.clip_norm))
         torch._foreach_mul_(self.mu, B1)
         torch._foreach_add_(self.mu, grads, alpha=1.0 - B1)
         torch._foreach_mul_(self.nu, B2)
         torch._foreach_add_(self.nu, torch._foreach_mul(grads, grads),
                             alpha=1.0 - B2)
-        mu_hat = torch._foreach_div(self.mu, 1.0 - B1 ** self.step)
-        denom = torch._foreach_div(self.nu, 1.0 - B2 ** self.step)
+        mu_hat = torch._foreach_div(self.mu, bias_correction(B1, self.step))
+        denom = torch._foreach_div(self.nu, bias_correction(B2, self.step))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, EPS)
         update = torch._foreach_div(mu_hat, denom)
         torch._foreach_add_(update, self.params, alpha=self.weight_decay)
         torch._foreach_add_(self.params, update, alpha=-self.learning_rate)
+
+
+def bias_correction(decay, step):
+    """Adam's ``1 - decay**step`` as optax computes it: in float32 (the
+    decay rounded to float32, a float32 power). Returned as the float
+    value of that float32 number. It matches XLA's float32 power at
+    most steps and is within one float32 ulp of it at the rest (for b2
+    0.999: 10 of the first 557 steps differ, the first at step 168)."""
+    d = torch.tensor(decay, dtype=torch.float32)
+    return float(1 - d ** torch.tensor(float(step), dtype=torch.float32))
 
 
 def create_train_state(model, seed=0, learning_rate=1e-4, weight_decay=1e-5,
@@ -139,3 +168,250 @@ def eval_step(state, images, labels):
     state.model.eval()
     logits = _logits(state.model, images)
     return bce_dice_loss(logits, labels), torch.sigmoid(logits) > 0.5
+
+
+def _grouped(batches, k):
+    """Consecutive minibatches in lists of up to k; a change of batch
+    length flushes the current list (as the JAX ``_grouped``)."""
+    buf = []
+    for b in batches:
+        if buf and (len(buf) == k or len(b) != len(buf[0])):
+            yield buf
+            buf = []
+        buf.append(b)
+    if buf:
+        yield buf
+
+
+def _batch_indices(n, batch_size, rng=None, drop_remainder=True):
+    """The JAX ``_iter_batches`` order, as index arrays: a permutation by
+    ``rng`` (or 0..n-1), cut into batches, the last partial one dropped."""
+    idx = rng.permutation(n) if rng is not None else np.arange(n)
+    end = n - (n % batch_size) if drop_remainder and n >= batch_size else n
+    return [idx[start:start + batch_size] for start in range(0, end, batch_size)]
+
+
+def _load_if_file(dataset):
+    """A single ``.npz`` dataset file loads in memory; batch directories
+    and streaming datasets are not ported yet."""
+    if isinstance(dataset, (str, Path)):
+        if Path(dataset).is_file():
+            return ArrayDataset.load_from_disk(dataset)
+        raise NotImplementedError(
+            f"{dataset}: training from a batch directory (StreamingDataset) is "
+            "not ported yet (ROADMAP.md, section 1, the rest of the training "
+            "slice); pass an ArrayDataset or a single .npz file")
+    if not hasattr(dataset, "images"):
+        raise NotImplementedError(
+            f"{type(dataset).__name__}: streaming datasets are not ported yet "
+            "(ROADMAP.md, section 1, the rest of the training slice); pass an "
+            "ArrayDataset or a single .npz file")
+    return dataset
+
+
+class Trainer:
+    """Segmentation trainer on one device.
+
+    >>> trainer = Trainer(model, checkpoint_dir="ckpts")
+    >>> result = trainer.fit(train_ds, val_ds, num_epochs=10, batch_size=32)
+
+    Args:
+        model: the port's UNet.
+        learning_rate, weight_decay: AdamW's (the JAX defaults).
+        checkpoint_dir: where ``fit`` saves checkpoints (none if None).
+        seed: seeds Flax's initialisers for a fresh state and each epoch's
+            shuffle (``np.random.default_rng((seed, epoch))``, the JAX
+            order); a state set on ``trainer.state`` before ``fit`` is
+            trained as it is.
+        device: ``None`` for the CUDA card, or e.g. ``"cpu"``.
+    """
+
+    def __init__(self, model, learning_rate=1e-4, weight_decay=1e-5,
+                 checkpoint_dir=None, seed=0, device=None):
+        self.model = model
+        self.learning_rate = learning_rate
+        self.weight_decay = weight_decay
+        self.checkpoint_dir = Path(checkpoint_dir) if checkpoint_dir else None
+        self.seed = seed
+        self.device = resolve_device(device)
+        self.state = None
+        self.history = []
+
+    def _init_state(self):
+        return create_train_state(self.model, self.seed, self.learning_rate,
+                                  self.weight_decay, device=self.device)
+
+    # -- checkpoints --------------------------------------------------------
+    def save_checkpoint(self, name, epoch, loss):
+        """Save the state under ``checkpoint_dir / (name + ".pt")``; returns
+        the path, or None without a checkpoint directory."""
+        if self.checkpoint_dir is None:
+            return None
+        self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
+        path = (self.checkpoint_dir / f"{name}.pt").absolute()
+        st = self.state
+        torch.save({"model": st.model.state_dict(), "mu": st.mu, "nu": st.nu,
+                    "step": st.step, "epoch": int(epoch), "loss": float(loss)}, path)
+        return path
+
+    def latest_checkpoint(self):
+        """The newest checkpoint under ``checkpoint_dir``, or None
+        (``fit(resume_from="auto")``)."""
+        if self.checkpoint_dir is None or not self.checkpoint_dir.exists():
+            return None
+        candidates = list(self.checkpoint_dir.glob("*.pt"))
+        return max(candidates, key=lambda p: p.stat().st_mtime) if candidates else None
+
+    def restore(self, path):
+        """Restore the model, Adam's moments and the step from a checkpoint
+        and return its epoch."""
+        tree = torch.load(path, map_location=self.device, weights_only=True)
+        if self.state is None:
+            self.state = self._init_state()
+        st = self.state
+        st.model.load_state_dict(tree["model"])
+        with torch.no_grad():
+            for dst, src in zip(st.mu + st.nu, tree["mu"] + tree["nu"]):
+                dst.copy_(src)
+        st.step = int(tree["step"])
+        return int(tree.get("epoch", 0))
+
+    # -- main loop -----------------------------------------------------------
+    def _tensors(self, dataset):
+        x = torch.as_tensor(dataset.images).to(self.device, torch.float32)
+        y = torch.as_tensor(dataset.labels).to(self.device, torch.float32)
+        return x, y
+
+    def fit(self, train_dataset, val_dataset=None, num_epochs=10, batch_size=8,
+            log_every=50, resume_from=None, fused_steps=8):
+        """Train; returns ``{'best_val_loss', 'best_checkpoint',
+        'final_checkpoint', 'history', 'epochs_run'}`` as the JAX ``fit``.
+
+        Datasets are ``ArrayDataset``-likes (images (N, H, W, C), labels
+        (N, H, W); numpy or tensors) or single ``.npz`` files; they are
+        moved to the device once. Each epoch shuffles by
+        ``np.random.default_rng((seed, epoch))`` and drops the last
+        partial batch, so a resumed run replays the uninterrupted run's
+        order. Groups of up to ``fused_steps`` minibatches go to
+        :func:`train_steps`. A NaN validation loss stops training.
+        ``log_every`` is accepted for the JAX signature and unused, as
+        there.
+        """
+        del log_every
+        images, labels = self._tensors(_load_if_file(train_dataset))
+        val = None
+        if val_dataset is not None:
+            val = self._tensors(_load_if_file(val_dataset))
+
+        start_epoch = 0
+        if resume_from == "auto":
+            resume_from = self.latest_checkpoint()
+        if resume_from is not None:
+            start_epoch = self.restore(resume_from)
+        elif self.state is None:
+            self.state = self._init_state()
+
+        best_val = float("inf")
+        best_path = None
+        train_loss = float("nan")  # a resume at num_epochs runs no epoch
+        for epoch in range(start_epoch, num_epochs):
+            t0 = time.perf_counter()
+            rng = np.random.default_rng((self.seed, epoch))
+            losses = []
+            for group in _grouped(_batch_indices(len(images), batch_size, rng),
+                                  max(1, int(fused_steps))):
+                idx = torch.as_tensor(np.stack(group), device=self.device)
+                if len(group) > 1:
+                    self.state, step_losses = train_steps(self.state, images[idx],
+                                                          labels[idx])
+                    losses.extend(step_losses)
+                else:
+                    self.state, loss = train_step(self.state, images[idx[0]],
+                                                  labels[idx[0]])
+                    losses.append(loss)
+            train_loss = float(torch.stack(losses).mean())
+            record = {"epoch": epoch + 1, "train_loss": train_loss,
+                      "seconds": time.perf_counter() - t0}
+
+            if val is not None:
+                val_losses, metrics = [], []
+                for sel in _batch_indices(len(val[0]), batch_size):
+                    sel = torch.as_tensor(sel, device=self.device)
+                    bi, bl = val[0][sel], val[1][sel]
+                    loss, preds = eval_step(self.state, bi, bl)
+                    val_losses.append(loss)
+                    m = evaluate_segmentation_batch(preds, bl > 0.5)
+                    metrics.append({k: float(v.mean()) for k, v in m.items()})
+                if not val_losses:
+                    raise ValueError("validation dataset produced no batches")
+                val_loss = float(torch.stack(val_losses).mean())
+                record["val_loss"] = val_loss
+                for k in metrics[0]:
+                    record[f"val_{k}"] = float(np.mean([m[k] for m in metrics]))
+                if np.isnan(val_loss):
+                    self.history.append(record)
+                    break
+                if val_loss < best_val:
+                    best_val = val_loss
+                    best_path = self.save_checkpoint(
+                        f"unet_rfi_epoch_{epoch + 1}", epoch + 1, val_loss)
+            self.history.append(record)
+
+        final_path = self.save_checkpoint("unet_rfi_final", num_epochs, train_loss)
+        return {
+            "best_val_loss": best_val,
+            "best_checkpoint": str(best_path) if best_path else None,
+            "final_checkpoint": str(final_path) if final_path else None,
+            "history": self.history,
+            "epochs_run": len(self.history),
+        }
+
+    # -- inference -----------------------------------------------------------
+    @torch.no_grad()
+    def predict(self, images, batch_size=32, threshold=0.5, tta=False):
+        """(N, H, W) bool masks, on the trainer's device, for (N, H, W, C)
+        images, with the running statistics. Every chunk, the last one too,
+        is zero-padded to ``batch_size`` images, as the JAX ``predict``
+        does; ``tta`` averages the probabilities of the four flips."""
+        model = self.state.model.eval()
+        x = torch.as_tensor(images).to(self.device, torch.float32)
+        n = x.shape[0]
+        out = torch.empty((n, *x.shape[1:3]), dtype=torch.bool, device=self.device)
+        for start in range(0, n, batch_size):
+            chunk = x[start:start + batch_size]
+            valid = chunk.shape[0]
+            if valid < batch_size:
+                chunk = torch.cat([chunk, chunk.new_zeros((batch_size - valid,
+                                                           *chunk.shape[1:]))])
+            out[start:start + valid] = predict_mask(
+                lambda imgs: _logits(model, imgs), chunk, threshold, tta)[:valid]
+        return out
+
+
+def export_params(state_or_model, path, metadata=None):
+    """Write the ``.npz`` inference snapshot of the JAX ``export_params``:
+    ``params/...`` and ``batch_stats/...`` arrays keyed by the Flax
+    variable paths, and ``__metadata__`` (JSON). The metadata defaults to
+    the model's ``init_features``, ``norm``, ``space_to_depth`` and
+    ``in_channels`` (what ``from_snapshot`` reads), updated by
+    ``metadata``. Returns ``path``."""
+    model = getattr(state_or_model, "model", state_or_model)
+    params, stats = params_to_flax(model)
+    arrays = {}
+
+    def flatten(prefix, tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                flatten(f"{prefix}/{k}", v)
+            else:
+                arrays[f"{prefix}/{k}"] = np.asarray(v)
+
+    flatten("params", params)
+    flatten("batch_stats", stats)
+    meta = {"init_features": model.init_features, "norm": model.norm,
+            "space_to_depth": model.space_to_depth, "in_channels": model.in_channels,
+            **(metadata or {})}
+    arrays["__metadata__"] = np.bytes_(json.dumps(meta).encode())
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **arrays)
+    return path

@@ -1,0 +1,143 @@
+"""Port parity: K6a (conv3x3_call) and K6b (conv3x3_dw) through their
+plain versions on the CPU, and the differentiable conv3x3_bias_relu and
+conv3x3, against the JAX package's Pallas kernels in interpret mode.
+
+Tolerances are the JAX package's own (tests/test_ops.py): 1e-4 on the
+forward, 1e-3 on the gradients; the dW contraction 1e-4. gradcheck runs
+the plain path in float64 at its default tolerances.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rfi_toolbox_tpu.ops import conv3x3 as jax_conv3x3
+from rfi_toolbox_tpu.ops import conv3x3_bias_relu as jax_conv3x3_bias_relu
+from rfi_toolbox_tpu.ops.conv3x3 import _dw_call
+from rfi_toolbox_tpu_torch.ops import (
+    conv3x3,
+    conv3x3_bias_relu,
+    conv3x3_call,
+    conv3x3_dw,
+    conv3x3_dw_plain,
+)
+from rfi_toolbox_tpu_torch.ops.conv3x3 import Conv3x3, Conv3x3BiasReLU, rotate_weight
+
+
+def _xla_conv(x, w, b=None, relu=True):
+    y = jax.lax.conv_general_dilated(x, w, (1, 1), "SAME",
+                                     dimension_numbers=("NHWC", "HWIO", "NHWC"))
+    if b is not None:
+        y = y + b
+    return jnp.maximum(y, 0.0) if relu else y
+
+
+def _inputs(rng, n, hw, ci, co):
+    x = rng.standard_normal((n, hw, hw, ci)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, ci, co)) * 0.1).astype(np.float32)
+    b = rng.standard_normal(co).astype(np.float32)
+    return x, w, b
+
+
+@pytest.mark.parametrize("ci, co, bias, relu", [
+    (8, 16, True, True),    # conv3x3_bias_relu, as tests/test_ops.py
+    (3, 16, True, True),    # the UNet's first layer: 3 input channels
+    (8, 16, False, False),  # conv3x3 without bias
+    (6, 5, True, False),    # conv3x3 with bias, ragged channels
+], ids=["bias_relu", "ci3", "no_bias", "bias_ragged"])
+def test_forward_matches_pallas(rng, ci, co, bias, relu):
+    x, w, b = _inputs(rng, 2, 16, ci, co)
+    if relu:
+        want = jax_conv3x3_bias_relu(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), True)
+        got = conv3x3_bias_relu(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b))
+    else:
+        jb = jnp.asarray(b) if bias else None
+        want = jax_conv3x3(jnp.asarray(x), jnp.asarray(w), jb, interpret=True)
+        got = conv3x3(torch.from_numpy(x), torch.from_numpy(w),
+                      torch.from_numpy(b) if bias else None)
+    assert got.dtype == torch.float32 and got.shape == (2, 16, 16, co)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-4)
+
+
+def test_inputs_are_cast_to_float32(rng):
+    x, w, b = _inputs(rng, 1, 8, 4, 4)
+    got = conv3x3_bias_relu(torch.from_numpy(x).double(), torch.from_numpy(w).half(),
+                            torch.from_numpy(b))
+    want = jax_conv3x3_bias_relu(jnp.asarray(x), jnp.asarray(w.astype(np.float16)),
+                                 jnp.asarray(b), True)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+def test_gradients_match_pallas_vjp(rng):
+    """dx, dW and db of sum(y^2) against jax.grad through the JAX custom
+    VJP (its _conv_call and _dw_call in interpret mode)."""
+    x, w, b = _inputs(rng, 2, 8, 4, 8)
+
+    def loss(x, w, b):
+        return jnp.sum(jax_conv3x3_bias_relu(x, w, b, True) ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    tx, tw, tb = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    (conv3x3_bias_relu(tx, tw, tb) ** 2).sum().backward()
+    for got, ref, name in zip((tx.grad, tw.grad, tb.grad), want, "xwb"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-3,
+                                   err_msg=f"grad {name}")
+
+
+def test_conv3x3_is_differentiable_unlike_jax(rng):
+    """The JAX conv3x3 calls _conv_call outside the custom VJP, so jax.grad
+    cannot go through it; the port's conv3x3 is differentiable through
+    K6a (dx) and K6b (dW) and agrees with jax.grad of the XLA conv."""
+    x, w, b = _inputs(rng, 2, 8, 4, 8)
+    with pytest.raises(NotImplementedError):
+        jax.grad(lambda w: jnp.sum(jax_conv3x3(jnp.asarray(x), w, None, True)))(
+            jnp.asarray(w))
+
+    def loss(x, w, b):
+        return jnp.sum(jnp.sin(_xla_conv(x, w, b, relu=False)))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    tx, tw, tb = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    torch.sin(conv3x3(tx, tw, tb)).sum().backward()
+    for got, ref, name in zip((tx.grad, tw.grad, tb.grad), want, "xwb"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-3,
+                                   err_msg=f"grad {name}")
+
+
+@pytest.mark.parametrize("ci, co", [(4, 8), (3, 5)])
+def test_plain_dw_matches_pallas(rng, ci, co):
+    x = rng.standard_normal((3, 8, 8, ci)).astype(np.float32)
+    g = rng.standard_normal((3, 8, 8, co)).astype(np.float32)
+    want = _dw_call(jnp.asarray(x), jnp.asarray(g), interpret=True)
+    got = conv3x3_dw(torch.from_numpy(x), torch.from_numpy(g))
+    assert got.shape == (3, 3, ci, co)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    np.testing.assert_allclose(conv3x3_dw_plain(torch.from_numpy(x), torch.from_numpy(g)),
+                               got.numpy(), atol=0)
+
+
+def test_rotated_weight_is_the_vjp_transpose(rng):
+    w = rng.standard_normal((3, 3, 4, 6)).astype(np.float32)
+    want = np.transpose(w[::-1, ::-1], (0, 1, 3, 2))
+    np.testing.assert_array_equal(rotate_weight(torch.from_numpy(w)).numpy(), want)
+
+
+@pytest.mark.parametrize("fn", [Conv3x3BiasReLU, Conv3x3], ids=["bias_relu", "conv"])
+def test_gradcheck_plain_path(fn):
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 4, 5, 3, dtype=torch.float64, generator=gen, requires_grad=True)
+    w = torch.randn(3, 3, 3, 2, dtype=torch.float64, generator=gen, requires_grad=True)
+    b = torch.randn(2, dtype=torch.float64, generator=gen, requires_grad=True)
+    assert torch.autograd.gradcheck(fn.apply, (x, w, b))
+
+
+def test_cpu_tensors_take_the_plain_version(rng):
+    x, w, b = _inputs(rng, 1, 8, 4, 4)
+    before = (conv3x3_call.launches, conv3x3_dw.launches)
+    tx = torch.from_numpy(x).requires_grad_()
+    conv3x3_bias_relu(tx, torch.from_numpy(w), torch.from_numpy(b)).sum().backward()
+    assert (conv3x3_call.launches, conv3x3_dw.launches) == before
+

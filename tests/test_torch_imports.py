@@ -21,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rfi_toolbox_tpu")
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tools" / "torch_train_profile.py"]
+                                         ROOT / "tools" / "torch_train_profile.py",
+                                         ROOT / "tools" / "conv_library_kernels.py"]
 
 
 def test_import_leaves_jax_out():
@@ -31,7 +32,10 @@ def test_import_leaves_jax_out():
         "rfi_toolbox_tpu_torch.ops, rfi_toolbox_tpu_torch.utils, "
         "rfi_toolbox_tpu_torch.train, rfi_toolbox_tpu_torch.synth, "
         "rfi_toolbox_tpu_torch.data, rfi_toolbox_tpu_torch.preprocess.static_prep, "
-        "rfi_toolbox_tpu_torch.preprocess.preprocessor\n"
+        "rfi_toolbox_tpu_torch.preprocess.preprocessor, rfi_toolbox_tpu_torch.models, "
+        "rfi_toolbox_tpu_torch.ops.conv3x3, rfi_toolbox_tpu_torch.ops.fused_doubleconv, "
+        "rfi_toolbox_tpu_torch.train.trainer, rfi_toolbox_tpu_torch.models.convert, "
+        "rfi_toolbox_tpu_torch.data.batched_dataset\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -62,7 +66,9 @@ def test_kernel_sources_are_plain_c_interface():
 
     sources = sorted((PORT / "ops" / "csrc").glob("*.cu*"))
     assert {p.name for p in sources} >= {"fused_channels.cu", "mad_flags.cu",
-                                         "channel_planes.cu", "plane_gather.cu"}
+                                         "channel_planes.cu", "plane_gather.cu",
+                                         "conv3x3.cu", "conv3x3_tile.cuh",
+                                         "double_conv_gn.cu"}
     text = "\n".join(p.read_text() for p in sources)
     assert not re.search(r"#include\s*[<\"](torch|ATen|c10|pybind11)", text)
     for name in _lib._SIGNATURES:
@@ -107,7 +113,7 @@ def test_entry_points_want_the_card():
     from rfi_toolbox_tpu_torch.preprocess import Preprocessor
     from rfi_toolbox_tpu_torch.serving import CompiledPredictor
     from rfi_toolbox_tpu_torch.synth import make_sample_generator
-    from rfi_toolbox_tpu_torch.train import create_train_state
+    from rfi_toolbox_tpu_torch.train import Trainer, create_train_state
     from rfi_toolbox_tpu_torch.utils import resolve_device
 
     vis = np.ones((1, 16, 16), np.complex64)
@@ -125,6 +131,8 @@ def test_entry_points_want_the_card():
         make_sample_generator(16, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_train_state(UNet(init_features=2, depth=2), 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(UNet(init_features=2, depth=2))
     assert resolve_device("cpu") == torch.device("cpu")
     assert flag_waterfalls(vis, device="cpu").shape == (1, 16, 16)
     ds = Preprocessor(vis, device="cpu").create_dataset(
