@@ -9,7 +9,11 @@ fails (non-zero exit) if any phase fails:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: one nvcc per source, all started together, and one link build
-   the CUDA kernels into build/torch_kernels/;
+   the CUDA kernels into build/torch_kernels/; the compiler's report of
+   the conv kernels (registers, spills, shared memory, from nvcc.log's
+   ``-Xptxas -v``) and the count of tensor-core TF32 MMAs in the SASS of
+   K6b's and K7's kernels (``cuobjdump -sass``), which must be the three
+   MMAs a product of 3xTF32 for every tile of the kernel's loop body;
 3. K4 (fused_extract_channels) against its plain PyTorch version on the
    card: 512 complex64 128x128 patches cut from 8 waterfalls of 1024 x
    1024, an odd N, a constant patch and real float32 input, max abs diff
@@ -53,7 +57,8 @@ fails (non-zero exit) if any phase fails:
     phase 5's images): against its plain version and the cuDNN layer
     (within 1e-5 of the layer's max |y|), times of the kernel, the plain
     version and cuDNN's fused conv+bias+ReLU, and each layer's bound
-    (``WINOGRAD_M``), under which none of the three times may fall; then
+    (Winograd's products, ``WINOGRAD_M``, at 3xTF32's rate on the tensor
+    cores), under which none of the three times may fall; then
     flag_waterfalls with every DoubleConv computed by K6a: one launch per
     layer, masks against the cuDNN predictor (>= 99.9% of the pixels),
     IoU > 0.9;
@@ -94,6 +99,7 @@ checkpoints of phase 13).
 
 import copy
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -113,16 +119,22 @@ SNAPSHOTS = ("pretrained/unet16_synthetic.npz", "pretrained/unet16gn_universal.n
 BATCH = 128  # the predictor's fixed batch
 WINDOW_S = 1.0  # least host seconds of one timed window of flag_waterfalls
 WINDOWS = 3
-# H100 SXM data sheet: HBM rate and the float32 rate outside the tensor cores
+# H100 SXM data sheet: HBM rate, the float32 rate outside the tensor cores
+# and the dense TF32 rate of the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
+# the fastest the card does float32-accurate products: 3xTF32 on the tensor
+# cores (three TF32 products each, as K6b and K7 do), or the scalar rate
+F32_PRODUCT_OPS_PER_S = max(SCALAR_OPS_PER_S, TF32_OPS_PER_S / 3)
 K4_OPS_PER_PIXEL = 40  # |z|, log10, gradient, min/max, window, atan2, affine
 # A 3x3 conv's bound counts the products of the fewest-multiplication exact
 # algorithm a float32 library runs, not the direct ones: Winograd's minimal
 # filtering F(m x m, 3 x 3) takes (m + 2)^2 products for an m x m tile of
 # outputs (of pixels, for dW) per (Ci, Co) pair, against 9 m^2 direct. m = 6
 # is the largest tile in float32 use (NNPACK's 8 x 8-tile Winograd); larger
-# tiles lose float32 accuracy. Transforms are not counted: a floor.
+# tiles lose float32 accuracy. Transforms are not counted: a floor. The
+# products are counted at F32_PRODUCT_OPS_PER_S.
 WINOGRAD_M = 6
 # What K5's design spends, not what its function needs (an exact median
 # and MAD take a few operations per pixel, so K5 is bound by its bytes):
@@ -159,9 +171,76 @@ MASK_AGREE = 0.999  # share of pixels two forwards must flag alike
 PLANE_OPS_PER_PIXEL = 60  # |z|, log10, 3 gradients, min/max, windows, atan2, affines
 
 
+def direct_gflop(n, h, w, ci, co):
+    """GFLOP of a direct 3x3 conv, its dx or its dW (2 * 9 * Ci * Co a
+    pixel): the work that "direct-equivalent TFLOP/s" divides."""
+    return 2 * 9 * n * h * w * ci * co / 1e9
+
+
+def hmma_expected(mangled):
+    """The tensor-core TF32 MMAs a 3xTF32 kernel's SASS must hold, read off
+    its tile's template arguments (``Li<n>E`` in the mangled name): three
+    (lo*hi, hi*lo, hi*hi) for every m16n8 tile of its unrolled loop body.
+    K6b's DwTile<CO_T, WM, WN, NT, XS>: CO_T / (16 WM) x NT tiles a warp,
+    the 9 taps inside NT; K7's Tile<TH, TW, CO_T, WM, WN>, true|false,
+    true|false: TH TW / (16 WM) x CO_T / (8 WN) tiles a warp, for each of
+    the 3 taps of a row (``#pragma unroll 1`` over the rows). None for
+    another kernel. A kernel that fell back to single TF32 holds a third."""
+    args = [int(v) for v in re.findall(r"Li(\d+)E", mangled)]
+    if "conv3x3_dw_kernel" in mangled:
+        co_t, wm, _, nt, _ = args
+        return 3 * (co_t // (16 * wm)) * nt
+    if "conv3x3_mma_kernel" in mangled:
+        th, tw, co_t, wm, wn = args[:5]
+        return 3 * 3 * (th * tw // (16 * wm)) * (co_t // (8 * wn))
+    return None
+
+
+def kernel_report(lib, nvcc):
+    """Print registers, spills and shared memory of the conv kernels
+    from nvcc.log, and the tensor-core TF32 MMAs in the SASS of each;
+    fail if a 3xTF32 kernel (K6b's conv3x3_dw_kernel, K7's
+    conv3x3_mma_kernel) holds another count than hmma_expected's."""
+    text = (lib.path.parent / "nvcc.log").read_text()
+    kernels = ("conv3x3_dw_kernel", "conv3x3_mma_kernel", "conv3x3_kernel",
+               "group_stats_kernel", "gn_relu_kernel", "sum_splits_kernel")
+    tool = Path(nvcc).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib.path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    hmma, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif name and "HMMA" in line and "TF32" in line:
+            hmma[name] = hmma.get(name, 0) + 1
+    names = re.findall(r"Compiling entry function '(\S+)'", text)
+    pretty = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                            text=True).stdout.splitlines() or names
+    for mangled, readable, part in zip(names, pretty, re.split(
+            r"Compiling entry function '\S+'", text)[1:]):
+        if not any(k in mangled for k in kernels):
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        smem = re.search(r"(\d+) bytes smem", part)
+        readable = re.sub(r"^void |\(anonymous namespace\)::|rfi::mmaconv::", "", readable)
+        want = hmma_expected(mangled)
+        log(f"  {readable.split('(')[0][:90]}: {regs.group(1) if regs else '?'} registers, "
+            f"spills {spill.group(1) if spill else '?'}/{spill.group(2) if spill else '?'} "
+            f"bytes (stores/loads), static shared {smem.group(1) if smem else 0} bytes, "
+            f"{hmma.get(mangled, 0)} HMMA.*.TF32 in its SASS"
+            + (f" (3xTF32: {want})" if want is not None else ""))
+        if want is not None:
+            require(hmma.get(mangled, 0) == want,
+                    f"{readable[:60]}: {hmma.get(mangled, 0)} tensor-core TF32 MMAs in its "
+                    f"SASS, not 3xTF32's {want}")
+
+
 def conv3x3_flops(n, h, w, ci, co):
     """Flops (product + accumulation = 2) of a 3x3 conv, its dx or its dW
-    over n x h x w pixels at Winograd F(6x6, 3x3)'s product count."""
+    over n x h x w pixels at Winograd F(6x6, 3x3)'s product count; a
+    conv's bound takes them at F32_PRODUCT_OPS_PER_S."""
     return 2 * n * h * w * ci * co * (WINOGRAD_M + 2) ** 2 / WINOGRAD_M ** 2
 
 T_START = time.perf_counter()
@@ -294,6 +373,7 @@ def main():
     lib = _lib.load()
     phases["build"] = time.perf_counter() - t
     log(f"build: nvcc {lib.build_seconds:.1f} s -> {lib.path.name}")
+    kernel_report(lib, _lib._nvcc())
 
     # -- data ---------------------------------------------------------------
     t = time.perf_counter()
@@ -491,9 +571,9 @@ def main():
     require(max(k1_err.values()) <= EXTRACT_TOL, "K1 disagrees with its plain version")
     require(not any(k3_diff.values()), "K3 is not bit-equal to its plain version")
 
-    def bound(n_bytes, n_ops):
+    def bound(n_bytes, n_ops, ops_per_s=SCALAR_OPS_PER_S):
         by_bytes = n_bytes / HBM_BYTES_PER_S
-        by_ops = n_ops / SCALAR_OPS_PER_S
+        by_ops = n_ops / ops_per_s
         return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
     static_kernels = {
@@ -714,7 +794,7 @@ def main():
         """(ms, kind) of a 3x3 conv's float32 work: each input read and
         output written once, the products of conv3x3_flops."""
         return bound(4 * (n * h * w * (ci + co) + 9 * ci * co + co),
-                     conv3x3_flops(n, h, w, ci, co))
+                     conv3x3_flops(n, h, w, ci, co), F32_PRODUCT_OPS_PER_S)
 
     def convs_of(model):
         return [m for m in model.modules()
@@ -746,6 +826,14 @@ def main():
         total["bound_by"] = "operations" if 2 * ops_ms >= total["bound_ms"] else "bytes"
         return total
 
+    def rate(rows):
+        """Direct-equivalent TFLOP/s of the kernel and of the library call
+        over the layers, and the library's time over the kernel's."""
+        gflop = sum(r["gflop"] for r in rows)
+        ms, lib_ms = sum(r["ms"] for r in rows), sum(r["library_ms"] for r in rows)
+        return (f"direct-equivalent {gflop / ms:.1f} TFLOP/s (library {gflop / lib_ms:.1f}), "
+                f"{lib_ms / ms:.2f}x faster than the library")
+
     def layer_log(name, rows):
         """Each layer's line; fails if a measured time is under the bound,
         which would make the bound no floor."""
@@ -754,8 +842,10 @@ def main():
                 f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}), "
                 f"{r['ms'] / r['bound_ms']:.1f}x the bound (library "
                 f"{r['library_ms'] / r['bound_ms']:.1f}x), {r['library_ms'] / r['ms']:.2f}x "
-                f"faster than the library; err vs plain {r['err_plain']:.1e}, vs library "
-                f"{r['err_library']:.1e} (share of the output's max)")
+                f"faster than the library; direct-equivalent {r['gflop'] / r['ms']:.1f} "
+                f"TFLOP/s (library {r['gflop'] / r['library_ms']:.1f}); err vs plain "
+                f"{r['err_plain']:.1e}, vs library {r['err_library']:.1e} (share of the "
+                f"output's max)")
         under = [r["shape"] for r in rows
                  if min(r["ms"], r["plain_ms"], r["library_ms"]) < r["bound_ms"]]
         require(not under, f"{name}: measured under the bound at {under}")
@@ -780,6 +870,7 @@ def main():
             bound_ms, bound_by = conv_bound(n, h, wd, ci, co)
             k6a_rows.append({
                 "shape": f"({n},{h},{wd},{ci})->{co}",
+                "gflop": direct_gflop(n, h, wd, ci, co),
                 "err_abs": float((y - y_plain).abs().max()),
                 "err_plain": float((y - y_plain).abs().max()) / scale,
                 "err_library": float((y - y_layer).abs().max()) / scale,
@@ -795,7 +886,7 @@ def main():
     log(f"K6a over the 18 layers of the folded UNet16 at batch {BATCH}: kernel "
         f"{k6a['ms']:.3f} ms, plain {k6a['plain_ms']:.3f}, cuDNN conv+bias+ReLU "
         f"{k6a['library_ms']:.3f}, bound {k6a['bound_ms']:.3f} ({k6a['bound_by']}); worst "
-        f"error {worst:.1e} of the layer's max |y| (tol {CONV_RTOL:g})")
+        f"error {worst:.1e} of the layer's max |y| (tol {CONV_RTOL:g}); {rate(k6a_rows)}")
     require(worst <= CONV_RTOL, "K6a disagrees with its plain version or the cuDNN layer")
 
     def through_k6a(dc):
@@ -869,9 +960,11 @@ def main():
             co = args[0].shape[3]
             bound_ms, bound_by = bound(
                 4 * (n * h * wd * (ci + co) + 9 * ci * co + 9 * co * co + 4 * co),
-                conv3x3_flops(n, h, wd, ci, co) + conv3x3_flops(n, h, wd, co, co))
+                conv3x3_flops(n, h, wd, ci, co) + conv3x3_flops(n, h, wd, co, co),
+                F32_PRODUCT_OPS_PER_S)
             k7_rows.append({
                 "shape": f"({n},{h},{wd},{ci})->{co}, {kw['num_groups']} groups",
+                "gflop": direct_gflop(n, h, wd, ci, co) + direct_gflop(n, h, wd, co, co),
                 "err_abs": float((y - y_plain).abs().max()),
                 "err_plain": float((y - y_plain).abs().max()) / scale,
                 "err_library": float((y - y_layer).abs().max()) / scale,
@@ -886,7 +979,7 @@ def main():
     log(f"K7 over the 9 DoubleConvs of the GroupNorm UNet16 at batch {BATCH}: kernel "
         f"{k7['ms']:.3f} ms, plain {k7['plain_ms']:.3f}, DoubleConv (cuDNN + group_norm) "
         f"{k7['library_ms']:.3f}, bound {k7['bound_ms']:.3f} ({k7['bound_by']}); worst error "
-        f"{worst:.1e} of the block's max |y| (tol {K7_RTOL:g})")
+        f"{worst:.1e} of the block's max |y| (tol {K7_RTOL:g}); {rate(k7_rows)}")
     require(worst <= K7_RTOL, "K7 disagrees with its plain version or the DoubleConv")
 
     def through_k7(dc):
@@ -985,9 +1078,10 @@ def main():
             n, h, wd, ci = x.shape
             co = g.shape[3]
             bound_ms, bound_by = bound(4 * (n * h * wd * (ci + co) + 9 * ci * co),
-                                       conv3x3_flops(n, h, wd, ci, co))
+                                       conv3x3_flops(n, h, wd, ci, co), F32_PRODUCT_OPS_PER_S)
             k6b_rows.append({
                 "shape": f"({n},{h},{wd},{ci})x({co})",
+                "gflop": direct_gflop(n, h, wd, ci, co),
                 "err_abs": float((dw - dw_plain).abs().max()),
                 "err_plain": float((dw - dw_plain).abs().max()) / scale,
                 "err_library": float((dw - dw_lib).abs().max()) / scale,
@@ -1003,7 +1097,7 @@ def main():
     log(f"K6b over the 18 layers of UNet32 at batch {TRAIN_BATCH}: kernel {k6b['ms']:.3f} ms, "
         f"plain {k6b['plain_ms']:.3f}, cuDNN weight gradient {k6b['library_ms']:.3f}, bound "
         f"{k6b['bound_ms']:.3f} ({k6b['bound_by']}); worst error {worst:.1e} of max |dW| (tol "
-        f"{DW_RTOL:g}); two runs bit-equal: {deterministic}")
+        f"{DW_RTOL:g}); two runs bit-equal: {deterministic}; {rate(k6b_rows)}")
     require(worst <= DW_RTOL, "K6b disagrees with its plain version or cuDNN")
     require(deterministic, "K6b is not deterministic")
     phases["K6a+K6b train"] = time.perf_counter() - t

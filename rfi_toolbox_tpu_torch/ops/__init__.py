@@ -11,8 +11,10 @@ launches its kernel for a CUDA tensor; the kernels are built by
 - K5 ``mad_flag_patches`` (csrc/mad_flags.cu)
 - K6a ``conv3x3_call`` (csrc/conv3x3.cu, csrc/conv3x3_tile.cuh), behind
   the differentiable ``conv3x3_bias_relu`` and ``conv3x3``
-- K6b ``conv3x3_dw`` (csrc/conv3x3.cu), their weight gradient
-- K7 ``double_conv_gn_relu`` (csrc/double_conv_gn.cu)
+- K6b ``conv3x3_dw`` (csrc/conv3x3.cu, csrc/mma_tf32.cuh), their weight
+  gradient, on the tensor cores in 3xTF32 (float32 accuracy)
+- K7 ``double_conv_gn_relu`` (csrc/double_conv_gn.cu, csrc/conv3x3_mma.cuh),
+  on the tensor cores in 3xTF32
 """
 
 from .conv3x3 import (

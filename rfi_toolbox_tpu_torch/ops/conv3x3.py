@@ -9,8 +9,10 @@ casts.
   ``csrc/conv3x3_tile.cuh``): ``[relu](conv3x3(x, W) + b)``, the
   counterpart of ``_conv_call``.
 - :func:`conv3x3_dw` is K6b's wrapper: the weight gradient, the
-  counterpart of ``_dw_call``. Deterministic: the same inputs give the
-  same bits.
+  counterpart of ``_dw_call``, an implicit GEMM on the tensor cores in
+  3xTF32 (each float32 operand split into two TF32 parts, three products:
+  float32 accuracy; no TF32 switch is involved). Deterministic: the same
+  inputs give the same bits.
 - :func:`conv3x3_bias_relu` and :func:`conv3x3` are differentiable
   (``torch.autograd.Function``): dx is K6a on the 180-degree-rotated,
   channel-transposed weights without ReLU, dW is K6b and db a plain sum,

@@ -1,6 +1,7 @@
-// The direct 3x3 convolution that K6a (conv3x3.cu) and K7
-// (double_conv_gn.cu) share: NHWC float32 activations, HWIO weights, SAME
-// padding, plain FP32 FMAs (no tensor cores).
+// K6a's direct 3x3 convolution (conv3x3.cu): NHWC float32 activations,
+// HWIO weights, SAME padding, plain FP32 FMAs (no tensor cores). K6a alone
+// uses this tile; K7 moved to conv3x3_mma.cuh's 3xTF32 tensor-core tile,
+// and the next step moves K6a there too and deletes this header.
 //
 //   y[n, h, w, o] = sum_{ky, kx, i} x[n, h + ky - 1, w + kx - 1, i] * W[ky, kx, i, o]
 //
@@ -24,16 +25,6 @@
 //   busy: 16 x 16 pixels for Co <= 16, 8 x 16 for Co <= 32, 8 x 8 with
 //   64-channel slices above. Ragged Ci and Co (3 input channels, a
 //   decoder's 2 Co) are zero-filled in shared memory and masked on store.
-//
-// Two options serve K7's GroupNorm without a pass of its own:
-// - kStats: the block also reduces each output channel's sum and sum of
-//   squares over its pixels, in float64, in a fixed order, and writes them
-//   to stats[(n * tiles + tile) * Co + o]; no atomics, so runs are
-//   reproducible.
-// - kGnIn: the input is a raw conv output; the block first reduces the
-//   kStats partials of its image to each group's mean and 1/sqrt(var + eps)
-//   and applies relu((v - mean) * rstd * gamma + beta) to every in-image
-//   value as it stages it (the SAME padding stays zero, as after the ReLU).
 #pragma once
 
 #include "common.cuh"
@@ -45,7 +36,6 @@ constexpr int kThreads = 128;
 constexpr int kKC = 16;  // input channels staged per chunk
 constexpr int kPX = 4;   // output pixels per thread, along W
 constexpr int kCO = 8;   // output channels per thread
-constexpr int kMaxGroups = 64;
 
 template <int TH, int TW, int TCO>
 struct Tile {
@@ -65,56 +55,12 @@ struct ConvArgs {
   float* y;        // (n, h, w, co)
   int n, h, w, ci, co;
   int relu;
-  double2* stats_out;       // kStats: (n, tiles, co) (sum, sum of squares)
-  const double2* stats_in;  // kGnIn: the partials of the conv that wrote x
-  const float* gamma;       // kGnIn: (ci,)
-  const float* beta;        // kGnIn: (ci,)
-  int groups;               // kGnIn: groups of ci
-  float eps;
 };
 
-// Mean and 1/sqrt(var + eps) of each of the `groups` contiguous channel
-// groups of image n, from the float64 per-tile, per-channel sums
-// stats[(n * tiles + t) * c + ch] of `pixels` pixels per channel. The
-// one-pass variance E[v^2] - mean^2 is taken in float64, where its
-// cancellation stays below float32 rounding unless |mean| / std exceeds
-// about 1e4. Every thread of the block calls it; the result is in
-// mean[g], rstd[g] after its closing barrier.
-__device__ inline void group_stats(const double2* stats, int n, int tiles, int c,
-                                   int groups, int pixels, float eps, float* mean,
-                                   float* rstd) {
-  const int cg = c / groups;
-  const int lane = threadIdx.x % 32;
-  const int warps = blockDim.x / 32;
-  const double2* p = stats + static_cast<size_t>(n) * tiles * c;
-  for (int g = threadIdx.x / 32; g < groups; g += warps) {
-    double s1 = 0.0, s2 = 0.0;
-    for (int i = lane; i < tiles * cg; i += 32) {
-      const double2 v = p[static_cast<size_t>(i / cg) * c + g * cg + i % cg];
-      s1 += v.x;
-      s2 += v.y;
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      s1 += __shfl_xor_sync(kFullMask, s1, o);
-      s2 += __shfl_xor_sync(kFullMask, s2, o);
-    }
-    if (lane == 0) {
-      const double count = static_cast<double>(pixels) * cg;
-      const double m = s1 / count;
-      const double var = fmax(s2 / count - m * m, 0.0);
-      mean[g] = static_cast<float>(m);
-      rstd[g] = rsqrtf(__fadd_rn(static_cast<float>(var), eps));
-    }
-  }
-  __syncthreads();
-}
-
-template <int TH, int TW, int TCO, bool kStats, bool kGnIn>
+template <int TH, int TW, int TCO>
 __global__ void __launch_bounds__(kThreads) conv3x3_kernel(ConvArgs a) {
   using T = Tile<TH, TW, TCO>;
   __shared__ __align__(16) float smem[T::kW + T::kIn];
-  __shared__ float s_mean[kGnIn ? kMaxGroups : 1];
-  __shared__ float s_rstd[kGnIn ? kMaxGroups : 1];
   float* s_w = smem;
   float* s_in = smem + T::kW;
 
@@ -130,12 +76,6 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(ConvArgs a) {
   const int pr = pxg / (TW / kPX);          // tile row of the thread's pixels
   const int pc = (pxg % (TW / kPX)) * kPX;  // tile column of the first one
   const int ci = a.ci;
-
-  if constexpr (kGnIn) {
-    group_stats(a.stats_in, n, gridDim.x, ci, a.groups, a.h * a.w, a.eps, s_mean,
-                s_rstd);
-  }
-  const int cg = kGnIn ? ci / a.groups : 1;
 
   float acc[kPX][kCO];
 #pragma unroll
@@ -163,13 +103,6 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(ConvArgs a) {
       float v = 0.0f;
       if (gh >= 0 && gh < a.h && gw >= 0 && gw < a.w && cc < ci) {
         v = __ldg(a.x + ((static_cast<size_t>(n) * a.h + gh) * a.w + gw) * ci + cc);
-        if constexpr (kGnIn) {
-          const int g = cc / cg;
-          v = fmaxf(__fadd_rn(__fmul_rn(__fsub_rn(v, s_mean[g]),
-                                        __fmul_rn(s_rstd[g], __ldg(a.gamma + cc))),
-                              __ldg(a.beta + cc)),
-                    0.0f);
-        }
       }
       s_in[c * T::kPlane + r * T::kRow + col] = v;
     }
@@ -201,40 +134,6 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(ConvArgs a) {
 
   const int oh = h0 + pr;
   const int oc0 = co0 + cog * kCO;
-  if constexpr (kStats) {
-    double s1[kCO], s2[kCO];
-#pragma unroll
-    for (int j = 0; j < kCO; ++j) s1[j] = s2[j] = 0.0;
-#pragma unroll
-    for (int p = 0; p < kPX; ++p) {
-      if (oh < a.h && w0 + pc + p < a.w) {
-#pragma unroll
-        for (int j = 0; j < kCO; ++j) {
-          const double v = acc[p][j];
-          s1[j] += v;
-          s2[j] += v * v;
-        }
-      }
-    }
-    __syncthreads();  // the shared tiles are free: reuse them for the sums
-    double2* red = reinterpret_cast<double2*>(smem);  // (kPxg, TCO)
-#pragma unroll
-    for (int j = 0; j < kCO; ++j) {
-      red[pxg * TCO + cog * kCO + j] = make_double2(s1[j], s2[j]);
-    }
-    __syncthreads();
-    if (tid < TCO && co0 + tid < a.co) {
-      double t1 = 0.0, t2 = 0.0;
-      for (int q = 0; q < T::kPxg; ++q) {
-        const double2 r = red[q * TCO + tid];
-        t1 += r.x;
-        t2 += r.y;
-      }
-      a.stats_out[(static_cast<size_t>(n) * gridDim.x + tile) * a.co + co0 + tid] =
-          make_double2(t1, t2);
-    }
-  }
-
   if (oh >= a.h) return;
   const bool whole = (a.co % 4 == 0) && (oc0 + kCO <= a.co);
 #pragma unroll
@@ -265,29 +164,21 @@ inline int tiles_of(int h, int w) {
   return ((h + TH - 1) / TH) * ((w + TW - 1) / TW);
 }
 
-template <int TH, int TW, int TCO, bool kStats, bool kGnIn>
+template <int TH, int TW, int TCO>
 inline cudaError_t launch_tile(const ConvArgs& a, cudaStream_t stream) {
   const dim3 grid(tiles_of<TH, TW, TCO>(a.h, a.w), (a.co + TCO - 1) / TCO, a.n);
-  conv3x3_kernel<TH, TW, TCO, kStats, kGnIn><<<grid, kThreads, 0, stream>>>(a);
+  conv3x3_kernel<TH, TW, TCO><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-// The tile for Co output channels, and the number of pixel tiles per image
-// (the `tiles` of the kStats partials).
-inline int conv_tiles(int h, int w, int co) {
-  if (co <= 16) return tiles_of<16, 16, 16>(h, w);
-  if (co <= 32) return tiles_of<8, 16, 32>(h, w);
-  return tiles_of<8, 8, 64>(h, w);
-}
-
-template <bool kStats, bool kGnIn>
+// The tile follows Co.
 inline cudaError_t launch_conv(const ConvArgs& a, cudaStream_t stream) {
   if (a.n <= 0 || a.h <= 0 || a.w <= 0 || a.ci <= 0 || a.co <= 0 || a.n > 65535) {
     return cudaErrorInvalidValue;
   }
-  if (a.co <= 16) return launch_tile<16, 16, 16, kStats, kGnIn>(a, stream);
-  if (a.co <= 32) return launch_tile<8, 16, 32, kStats, kGnIn>(a, stream);
-  return launch_tile<8, 8, 64, kStats, kGnIn>(a, stream);
+  if (a.co <= 16) return launch_tile<16, 16, 16>(a, stream);
+  if (a.co <= 32) return launch_tile<8, 16, 32>(a, stream);
+  return launch_tile<8, 8, 64>(a, stream);
 }
 
 }  // namespace conv

@@ -8,8 +8,9 @@ activations, HWIO weights; inputs of another dtype are cast to float32.
 Forward only, as the JAX kernel: on the card it raises when a gradient
 is wanted.
 
-The kernel is ``csrc/double_conv_gn.cu``: three launches per call, which
-count as one (``double_conv_gn_relu.launches``). Its plain version,
+The kernel is ``csrc/double_conv_gn.cu`` on ``csrc/conv3x3_mma.cuh``'s
+tensor-core tile in 3xTF32 (float32 accuracy): five launches per call,
+which count as one (``double_conv_gn_relu.launches``). Its plain version,
 :func:`double_conv_gn_relu_plain`, is the port's ``DoubleConv``
 arithmetic (``F.conv2d`` and ``F.group_norm``); the wrapper runs it for
 a CPU tensor. The TPU's ``double_conv_fits_vmem`` has no counterpart:
@@ -42,7 +43,7 @@ def double_conv_gn_relu(x, w1, g1, b1, w2, g2, b2, num_groups=8, eps=1e-6):
 
     A CPU tensor goes through the plain version. On the card,
     ``num_groups`` must divide Co and be at most ``kMaxGroups`` (64,
-    ``csrc/conv3x3_tile.cuh``).
+    ``csrc/conv3x3_mma.cuh``).
     """
     args = [t.to(torch.float32).contiguous() for t in (x, w1, g1, b1, w2, g2, b2)]
     x, w1, g1, b1, w2, g2, b2 = args
@@ -70,7 +71,7 @@ def double_conv_gn_relu(x, w1, g1, b1, w2, g2, b2, num_groups=8, eps=1e-6):
     slots = ctypes.c_longlong()  # the kernel's (sum, sum of squares) partials
     if lib.rfi_double_conv_gn_workspace(n, h, w, co, int(num_groups), ctypes.byref(slots)):
         raise ValueError(f"num_groups {num_groups} must divide {co} and be at most "
-                         "kMaxGroups (csrc/conv3x3_tile.cuh)")
+                         "kMaxGroups (csrc/conv3x3_mma.cuh)")
     out = torch.empty((n, h, w, co), dtype=torch.float32, device=x.device)
     mid = torch.empty_like(out)
     stats1 = torch.empty(2 * slots.value, dtype=torch.float64, device=x.device)

@@ -5,14 +5,27 @@ conv3x3, against the JAX package's Pallas kernels in interpret mode.
 Tolerances are the JAX package's own (tests/test_ops.py): 1e-4 on the
 forward, 1e-3 on the gradients; the dW contraction 1e-4. gradcheck runs
 the plain path in float64 at its default tolerances.
+
+On the card K6b computes in 3xTF32 on the tensor cores (each float32
+operand split into a TF32 hi and a TF32 lo, three products a product),
+accumulating in float32 that truncates at each MMA. The test_3xtf32_dw_*
+tests emulate that arithmetic here (_dw_mma) against float64: a short
+chain within a tenth of chip_smoke.py's gate, K6b's longest chain within
+a quarter of it, and single TF32 past the gate and at least 10x farther,
+which is why single TF32 was refused.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from chip_smoke import DW_RTOL
 from rfi_toolbox_tpu.ops import conv3x3 as jax_conv3x3
 from rfi_toolbox_tpu.ops import conv3x3_bias_relu as jax_conv3x3_bias_relu
 from rfi_toolbox_tpu.ops.conv3x3 import _dw_call
@@ -141,3 +154,105 @@ def test_cpu_tensors_take_the_plain_version(rng):
     conv3x3_bias_relu(tx, torch.from_numpy(w), torch.from_numpy(b)).sum().backward()
     assert (conv3x3_call.launches, conv3x3_dw.launches) == before
 
+
+
+def _tf32(t):
+    """float32 -> TF32 as cvt.rna rounds: to nearest on the low 13 mantissa
+    bits, ties away from zero (finite inputs)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(t):
+    """The kernels' operand split: hi = tf32(t), lo = tf32(t - hi)."""
+    hi = _tf32(t)
+    return hi, _tf32(t - hi)
+
+
+def _chop(t):
+    """float64 -> float32 rounded toward zero: how the tensor cores
+    normalise a float32 accumulation (an mma.sync adds its exact products
+    to the accumulator and truncates the sum)."""
+    f = t.float()
+    return torch.where(f.double().abs() > t.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _hi(t):
+    return _split(t)[0]
+
+
+def _lo(t):
+    return _split(t)[1]
+
+
+# (x part, g part) of each MMA of a product, in K6b's order
+THREE = [(_hi, _lo), (_lo, _hi), (_hi, _hi)]
+SINGLE = [(_hi, _hi)]
+
+
+def _dw_mma(x, g, parts):
+    """dW (3, 3, Ci, Co) as K6b's m16n8k8 MMAs form it in one split:
+    dW^T = G^T X over the pixels in (n, h, w) order, 8 pixels a step, each
+    step adding the product of each (x part, g part) to one float32
+    accumulator that truncates (_chop)."""
+    n, h, w, ci = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    cols = torch.stack([xp[:, ky:ky + h, kx:kx + w] for ky in range(3) for kx in range(3)],
+                       3).reshape(n * h * w, 9 * ci)
+    gm = g.reshape(n * h * w, -1)
+    pairs = [(a(cols).double(), b(gm).double()) for a, b in parts]
+    acc = torch.zeros(9 * ci, gm.shape[1])
+    for p in range(0, n * h * w, 8):
+        for xa, ga in pairs:
+            acc = _chop(acc.double() + xa[p:p + 8].T @ ga[p:p + 8])
+    return acc.reshape(3, 3, ci, -1)
+
+
+def _dw_errors(x, g):
+    """(3xTF32, single TF32) emulated errors against float64, as shares of
+    max |dW|."""
+    want = conv3x3_dw_plain(x.double(), g.double())
+    scale = float(want.abs().max())
+    return [float((_dw_mma(x, g, parts).double() - want).abs().max()) / scale
+            for parts in (THREE, SINGLE)]
+
+
+def test_tf32_rounding_is_cvt_rna():
+    got = _tf32(torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11,
+                              -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0]))
+    want = [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9, -(1.0 + 2.0 ** -10), 1.0, 3.0]
+    assert got.tolist() == want  # ties away from zero, else to nearest
+    hi, lo = _split(torch.tensor([1.0 + 2.0 ** -11 + 2.0 ** -20]))
+    assert float(hi + lo) == 1.0 + 2.0 ** -11 + 2.0 ** -20
+
+
+def test_3xtf32_dw_error_budget(rng):
+    """K6b's deepest reduction per pixel, UNet32's 8 x 8 layer with 512 x
+    512 channels (the 9 x 512 x 512 products of a pixel), at N = 2, all
+    128 pixels in one chain: 3xTF32 within a tenth of the gate, single
+    TF32 past it."""
+    x = torch.from_numpy(rng.standard_normal((2, 8, 8, 512)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, 8, 8, 512)).astype(np.float32))
+    err3, err1 = _dw_errors(x, g)
+    assert err3 <= DW_RTOL / 10, err3
+    assert err1 > DW_RTOL, err1
+    assert err1 >= 10 * err3, (err1, err3)
+
+
+def _dw_source_constant(name):
+    src = Path(__file__).resolve().parents[1] / "rfi_toolbox_tpu_torch/ops/csrc/conv3x3.cu"
+    return int(re.search(rf"constexpr int {name} = (\d+);", src.read_text()).group(1))
+
+
+def test_3xtf32_dw_longest_chain(rng):
+    """The longest chain a K6b split accumulates, kDwMaxChain chunks of
+    kDwPixels pixels (read from the CUDA source), as 8 x 8 images at 64 x
+    64 channels: the truncation grows with the chain, so this is K6b's
+    worst case; within a quarter of the gate, single TF32 past it."""
+    pixels = _dw_source_constant("kDwMaxChain") * _dw_source_constant("kDwPixels")
+    x = torch.from_numpy(rng.standard_normal((pixels // 64, 8, 8, 64)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((pixels // 64, 8, 8, 64)).astype(np.float32))
+    err3, err1 = _dw_errors(x, g)
+    assert err3 <= DW_RTOL / 4, err3
+    assert err1 > DW_RTOL, err1
+    assert err1 >= 10 * err3, (err1, err3)
