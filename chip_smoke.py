@@ -12,15 +12,19 @@ fails (non-zero exit) if any phase fails:
    the CUDA kernels into build/torch_kernels/; the compiler's report of
    the conv kernels (registers, spills, shared memory, from nvcc.log's
    ``-Xptxas -v``) and the count of tensor-core TF32 MMAs in the SASS of
-   K6b's and K7's kernels (``cuobjdump -sass``), which must be the three
-   MMAs a product of 3xTF32 for every tile of the kernel's loop body;
+   K6a's, K6b's and K7's kernels (``cuobjdump -sass``), which must be the
+   three MMAs a product of 3xTF32 for every tile of the kernel's loop
+   body;
 3. K4 (fused_extract_channels) against its plain PyTorch version on the
    card: 512 complex64 128x128 patches cut from 8 waterfalls of 1024 x
    1024, an odd N, a constant patch and real float32 input, max abs diff
    <= 2e-5; time per call (CUDA events, see ``cuda_ms``);
 4. K5 (mad_flag_patches) at sigma 5 against its plain version, flags
    bit-equal: the 512 patches, whole 1024 x 1024 waterfalls, patches with
-   NaNs, negative real input; time per call;
+   NaNs, negative real input, and the cases that stress its radix select:
+   values quantised to a few levels, constant patches, +-0.0, middle
+   pairs that straddle a digit's bins, a ragged patch size; time per
+   call;
 5. the model path, flag_waterfalls(method="model") with the shipped
    UNet16 snapshots (BatchNorm, GroupNorm) at full width on the 8 x 1024
    x 1024 waterfalls: IoU against the known RFI mask (> 0.9), K4
@@ -138,8 +142,10 @@ K4_OPS_PER_PIXEL = 40  # |z|, log10, gradient, min/max, window, atan2, affine
 WINOGRAD_M = 6
 # What K5's design spends, not what its function needs (an exact median
 # and MAD take a few operations per pixel, so K5 is bound by its bytes):
-# 2 radix selects x 32 passes x (2 compares + 2 adds) per pixel
-K5_DESIGN_OPS_PER_PIXEL = 2 * 32 * 4
+# 2 radix selects x (4 passes of 8 bits x (2 to test the prefix, 2 for the
+# digit, 1 shared atomic) + 2 for the least key above the lower rank), plus
+# 8 to form a key of |x - median| at each of the MAD select's 6 reads
+K5_DESIGN_OPS_PER_PIXEL = 2 * (4 * 5 + 2) + 6 * 8
 # the training main path (bench.py:main)
 RFI_CONFIG = {
     "narrowband_persistent": {"count": 20},
@@ -182,10 +188,11 @@ def hmma_expected(mangled):
     its tile's template arguments (``Li<n>E`` in the mangled name): three
     (lo*hi, hi*lo, hi*hi) for every m16n8 tile of its unrolled loop body.
     K6b's DwTile<CO_T, WM, WN, NT, XS>: CO_T / (16 WM) x NT tiles a warp,
-    the 9 taps inside NT; K7's Tile<TH, TW, CO_T, WM, WN>, true|false,
-    true|false: TH TW / (16 WM) x CO_T / (8 WN) tiles a warp, for each of
-    the 3 taps of a row (``#pragma unroll 1`` over the rows). None for
-    another kernel. A kernel that fell back to single TF32 holds a third."""
+    the 9 taps inside NT; conv3x3_mma_kernel<Tile<TH, TW, CO_T, WM, WN>,
+    kStats, kGnIn, kChunkSums> (K7: kChunkSums false, K6a: false, false,
+    true): TH TW / (16 WM) x CO_T / (8 WN) tiles a warp, for each of the 3
+    taps of a row (``#pragma unroll 1`` over the rows). None for another
+    kernel. A kernel that fell back to single TF32 holds a third."""
     args = [int(v) for v in re.findall(r"Li(\d+)E", mangled)]
     if "conv3x3_dw_kernel" in mangled:
         co_t, wm, _, nt, _ = args
@@ -197,13 +204,14 @@ def hmma_expected(mangled):
 
 
 def kernel_report(lib, nvcc):
-    """Print registers, spills and shared memory of the conv kernels
-    from nvcc.log, and the tensor-core TF32 MMAs in the SASS of each;
-    fail if a 3xTF32 kernel (K6b's conv3x3_dw_kernel, K7's
-    conv3x3_mma_kernel) holds another count than hmma_expected's."""
+    """Print registers, spills and shared memory of the conv kernels and
+    K5's from nvcc.log, and the tensor-core TF32 MMAs in the SASS of each;
+    fail if a 3xTF32 kernel (K6b's conv3x3_dw_kernel, K6a's and K7's
+    conv3x3_mma_kernel) holds another count than hmma_expected's, or if
+    K6a's four tiles (kChunkSums true) are missing."""
     text = (lib.path.parent / "nvcc.log").read_text()
-    kernels = ("conv3x3_dw_kernel", "conv3x3_mma_kernel", "conv3x3_kernel",
-               "group_stats_kernel", "gn_relu_kernel", "sum_splits_kernel")
+    kernels = ("conv3x3_dw_kernel", "conv3x3_mma_kernel", "group_stats_kernel",
+               "gn_relu_kernel", "sum_splits_kernel", "mad_flags_kernel")
     tool = Path(nvcc).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib.path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -235,6 +243,8 @@ def kernel_report(lib, nvcc):
             require(hmma.get(mangled, 0) == want,
                     f"{readable[:60]}: {hmma.get(mangled, 0)} tensor-core TF32 MMAs in its "
                     f"SASS, not 3xTF32's {want}")
+    k6a = [r for r in pretty if "conv3x3_mma_kernel" in r and r.split("(")[0].endswith("true>")]
+    require(len(k6a) == 4, f"K6a's tensor-core tiles: {len(k6a)} of 4 compiled")
 
 
 def conv3x3_flops(n, h, w, ci, co):
@@ -276,6 +286,46 @@ def make_waterfalls(rng):
     amp = np.where(mask, amp + rfi, amp)
     phase = rng.uniform(0, 2 * np.pi, shape).astype(np.float32)
     return (amp * np.exp(1j * phase)).astype(np.complex64), mask
+
+
+def order_key_to_float(keys):
+    """float32 values of K5's order-preserving uint32 keys (int64 here)."""
+    bits = np.where(keys >= 2 ** 31, keys & 0x7FFFFFFF, ~keys & 0xFFFFFFFF)
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def k5_select_cases(patches, real, g):
+    """Inputs that stress K5's 8-bit radix select: equal keys (quantised
+    values, constant patches, +-0.0), middle pairs whose keys first differ
+    at each of the 4 digits (even counts, so both ranks are selected), odd
+    counts, and a ragged patch size (keys past the patch)."""
+    dev = patches.device
+    amp = patches[:64].abs()
+    quantised = torch.round(amp * 4) / 4  # a few levels, and the RFI
+    constant = torch.full((8, PATCH, PATCH), 1.25, device=dev)
+    constant[1, 7, 7] = 40.0  # MAD 0: everything off the median is flagged
+    constant[2, :, :3] = 40.0
+    signs = torch.where(torch.rand((8, PATCH, PATCH), generator=g) < 0.5, -1.0, 1.0)
+    zeros = (signs * 0.0).to(dev)  # +0.0 and -0.0
+    zeros[:, :5] = signs[:, :5].to(dev) * 1e-3
+    zeros[1, 3, 3] = 7.0
+    # middle pairs: lo and hi = lo + 1 in key order, lo's low bits all ones
+    # up to a digit, so the two first differ at that digit; the last pair,
+    # -0.0 and +0.0, differs at the top digit
+    pairs = [0xBEFFFFFF, 0xBF80FFFF, 0xBF8000FF, 0xBF800000, 0x7FFFFFFF]
+    straddle = torch.empty((len(pairs), PATCH, PATCH))
+    half = PATCH * PATCH // 2
+    for i, lo in enumerate(pairs):
+        mid = order_key_to_float(np.array([lo, lo + 1], np.int64))
+        low = -3.0 - torch.rand(half - 1, generator=g)
+        high = 3.0 + torch.rand(half - 1, generator=g)
+        vals = torch.cat([low, torch.from_numpy(mid), high])
+        straddle[i] = vals[torch.randperm(vals.numel(), generator=g)].reshape(PATCH, PATCH)
+    odd = real[:4].clone()
+    odd[:, 0, 0] = float("nan")  # 16383 valid pixels: one middle rank
+    ragged = patches[:16, :37, :29].contiguous()
+    return {"quantised": quantised, "constant": constant, "+-0.0": zeros,
+            "straddle": straddle.to(dev), "odd count": odd, "37x29": ragged}
 
 
 def cuda_ms(fn, calls=50, windows=5):
@@ -428,6 +478,7 @@ def main():
         "whole 1024^2": wf,
         "NaNs": with_nan,
         "negative real": negative,
+        **k5_select_cases(patches, real, g),
     }
     k5_diff = {}
     for name, x in cases.items():

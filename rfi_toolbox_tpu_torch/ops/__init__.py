@@ -9,8 +9,9 @@ launches its kernel for a CUDA tensor; the kernels are built by
 - K3 ``fused_plane_gather_transform`` (csrc/plane_gather.cu)
 - K4 ``fused_extract_channels`` (csrc/fused_channels.cu)
 - K5 ``mad_flag_patches`` (csrc/mad_flags.cu)
-- K6a ``conv3x3_call`` (csrc/conv3x3.cu, csrc/conv3x3_tile.cuh), behind
-  the differentiable ``conv3x3_bias_relu`` and ``conv3x3``
+- K6a ``conv3x3_call`` (csrc/conv3x3.cu, csrc/conv3x3_mma.cuh), behind
+  the differentiable ``conv3x3_bias_relu`` and ``conv3x3``, on the tensor
+  cores in 3xTF32
 - K6b ``conv3x3_dw`` (csrc/conv3x3.cu, csrc/mma_tf32.cuh), their weight
   gradient, on the tensor cores in 3xTF32 (float32 accuracy)
 - K7 ``double_conv_gn_relu`` (csrc/double_conv_gn.cu, csrc/conv3x3_mma.cuh),

@@ -5,9 +5,11 @@ kept: NHWC float32 activations, HWIO weights ``(3, 3, Ci, Co)``, SAME
 padding; inputs of another dtype are cast to float32, as ``_conv_call``
 casts.
 
-- :func:`conv3x3_call` is K6a's wrapper (``csrc/conv3x3.cu``,
-  ``csrc/conv3x3_tile.cuh``): ``[relu](conv3x3(x, W) + b)``, the
-  counterpart of ``_conv_call``.
+- :func:`conv3x3_call` is K6a's wrapper (``csrc/conv3x3.cu`` on
+  ``csrc/conv3x3_mma.cuh``): ``[relu](conv3x3(x, W) + b)``, the
+  counterpart of ``_conv_call``, an implicit GEMM on the tensor cores in
+  3xTF32 that sums each 8-channel chunk apart and adds the chunks in
+  round-to-nearest (float32 accuracy at up to 512 input channels).
 - :func:`conv3x3_dw` is K6b's wrapper: the weight gradient, the
   counterpart of ``_dw_call``, an implicit GEMM on the tensor cores in
   3xTF32 (each float32 operand split into two TF32 parts, three products:

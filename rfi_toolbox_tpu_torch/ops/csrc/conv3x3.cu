@@ -6,9 +6,14 @@
 // their custom VJP, and _dw_call (body _dw_kernel). Their plain PyTorch
 // versions are in ops/conv3x3.py.
 //
-// K6a is conv3x3_tile.cuh's direct convolution. The TPU kernel keeps a
-// whole image, padded, in VMEM; 128 x 128 x 16 float32 is 1 MiB, over the
-// 227 KB a block may hold here, so this one tiles the image (see there).
+// K6a is conv3x3_mma.cuh's implicit GEMM on the tensor cores in 3xTF32,
+// as K7's convolutions, with a bias + ReLU epilogue and the kChunkSums
+// accumulation: each 8-channel chunk's MMAs sum into a zeroed fragment
+// that is added to the running sum in round-to-nearest, which keeps the
+// tensor cores' truncating accumulation within K6a's 1e-5 gate at up to
+// 512 input channels (see there). The TPU kernel keeps a whole image,
+// padded, in VMEM; 128 x 128 x 16 float32 is 1 MiB, over the 227 KB a
+// block may hold here, so this one tiles the image.
 //
 // K6b, bound on the H100: operations (2 * 9 * Ci * Co flops per pixel
 // against 4 * (Ci + Co) bytes). It is an implicit GEMM on the tensor
@@ -41,7 +46,7 @@
 //   every run.
 #include <type_traits>
 
-#include "conv3x3_tile.cuh"
+#include "conv3x3_mma.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -311,10 +316,10 @@ cudaError_t launch_dw(const float* x, const float* g, float* out, int n, int h, 
 // K6a. b may be null (no bias); relu 0 or 1.
 extern "C" int rfi_conv3x3(const void* x, const void* w, const void* b, void* y, int n,
                            int h, int wd, int ci, int co, int relu, void* stream) {
-  conv::ConvArgs a{};
+  mmaconv::ConvArgs a{};
   a.x = static_cast<const float*>(x);
   a.wt = static_cast<const float*>(w);
-  a.b = static_cast<const float*>(b);
+  a.bias = static_cast<const float*>(b);
   a.y = static_cast<float*>(y);
   a.n = n;
   a.h = h;
@@ -322,7 +327,8 @@ extern "C" int rfi_conv3x3(const void* x, const void* w, const void* b, void* y,
   a.ci = ci;
   a.co = co;
   a.relu = relu;
-  return static_cast<int>(conv::launch_conv(a, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      mmaconv::launch_conv<false, false, true>(a, static_cast<cudaStream_t>(stream)));
 }
 
 // K6b's split of the pixel reduction: enough blocks for kDwTargetBlocks

@@ -1,7 +1,7 @@
 // The 3x3 convolution forward on the tensor cores, in 3xTF32
-// (mma_tf32.cuh: float32 accuracy), with the GroupNorm options of K7
-// (double_conv_gn.cu). NHWC float32 activations, HWIO weights, SAME
-// padding:
+// (mma_tf32.cuh: float32 accuracy), for K6a (conv3x3.cu: bias, ReLU) and
+// K7 (double_conv_gn.cu: the GroupNorm options). NHWC float32
+// activations, HWIO weights, SAME padding:
 //
 //   y[n, h, w, o] = sum_{ky, kx, i} x[n, h + ky - 1, w + kx - 1, i] * W[ky, kx, i, o]
 //
@@ -33,7 +33,24 @@
 //   Co <= 32 and above, 8 x 8 where the image is at most 8 wide. Ragged Ci
 //   and Co are zero-filled in shared memory and masked on store.
 //
-// Two options serve K7's GroupNorm without a pass of its own:
+// The tensor cores add an MMA's products to its float32 accumulator and
+// truncate the sum, so one accumulator over all 9 Ci products of an
+// output drifts toward zero as Ci grows (in the CPU emulation of
+// tests/test_torch_conv3x3.py, 2e-5 of the output's max at 256 input
+// channels, 5e-5 at 512). The kChunkSums option (K6a) accumulates each
+// chunk's 27 MMAs into a zeroed fragment and adds that to the running sum
+// with an ordinary float32 add, which rounds to nearest: 8e-7 at either
+// width in the emulation, for a second set of accumulators in registers. K7
+// keeps the one accumulator, its error inside its 1e-4 gate. With the
+// second set, the 64-accumulator TileWide runs 2 blocks an SM
+// (TileWideSums: 255 registers, no spills): over K6a's 18 layers of the
+// folded UNet16 that took 4.93-4.95 ms against 5.10 at 3 blocks (552
+// bytes spilled) and 5.38-5.42 with 8 warps a block of 32 accumulators
+// (tools/conv_kernel_turns.py, NVIDIA H100 80GB HBM3 at 700 W).
+//
+// K6a's epilogue adds the bias (ConvArgs::bias, may be null) and applies
+// the ReLU (ConvArgs::relu) before the store. Two options serve K7's
+// GroupNorm without a pass of its own:
 // - kStats: the block also reduces each output channel's sum and sum of
 //   squares over its pixels, in float64, in a fixed order (a thread's
 //   rows, then the 8 row groups of a warp by shuffles, then the warps in
@@ -47,6 +64,8 @@
 //   zero, as after the ReLU (relu(GN(0)) is not). A thread keeps one
 //   channel of the chunk, so the pass is a few instructions a value.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma_tf32.cuh"
@@ -69,9 +88,11 @@ struct ConvArgs {
   const float* gamma;   // kGnIn: (ci,)
   const float* beta;    // kGnIn: (ci,)
   int groups;           // kGnIn: groups of ci
+  const float* bias;    // (co,) added before the store, or null
+  int relu;             // 1: max(y, 0) before the store
 };
 
-template <int TH, int TW, int CO_T, int WM, int WN>
+template <int TH, int TW, int CO_T, int WM, int WN, int MAXB = 4>
 struct Tile {
   static constexpr int kTH = TH, kTW = TW, kCoT = CO_T, kWM = WM;
   static constexpr int kThreads = 32 * WM * WN;
@@ -87,12 +108,22 @@ struct Tile {
   static_assert(TW % 8 == 0, "8 pixels of an m16 half lie in one row");
   static_assert(kStage % 4 == 0 && kWS % 4 == 0, "16-byte rows");
   // blocks an SM should hold: as many as the shared memory allows, at most
-  // 4 (128 registers a thread). More warps hide more of the latency the
-  // loop is bound by; a few spilled registers cost less (measured on the
-  // H100).
+  // MAXB (4: 128 registers a thread). More warps hide more of the latency
+  // the loop is bound by; a few spilled registers cost less (measured on
+  // the H100).
   static constexpr int kMinBlocks =
-      232448 / (kSmemBytes + 1024) < 4 ? 232448 / (kSmemBytes + 1024) : 4;
+      232448 / (kSmemBytes + 1024) < MAXB ? 232448 / (kSmemBytes + 1024) : MAXB;
 };
+
+template <int M, int N>
+__device__ __forceinline__ void zero(float (&acc)[M][N][4]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
+}
 
 // Stage input channels c0..c0+7 of the block's tile into buf: the input
 // with halo at [pixel * kXS + channel], the weights at
@@ -143,7 +174,7 @@ __device__ __forceinline__ void stage(float* buf, const ConvArgs& a, int n, int 
   }
 }
 
-template <typename T, bool kStats, bool kGnIn>
+template <typename T, bool kStats, bool kGnIn, bool kChunkSums>
 __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks) conv3x3_mma_kernel(ConvArgs a) {
   constexpr int kMT = T::kMT, kNT = T::kNT, kXW = T::kXW, kWS = T::kWS;
   float* smem = tf32::dynamic_smem();
@@ -182,12 +213,8 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks) conv3x3_mma_kernel
   }
 
   float acc[kMT][kNT][4];
-#pragma unroll
-  for (int mi = 0; mi < kMT; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < kNT; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.0f;
+  zero(acc);
+  float part[kMT][kNT][4];  // kChunkSums: this chunk's sums
 
   const int chunks = (a.ci + kKC - 1) / kKC;
 #pragma unroll
@@ -226,6 +253,7 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks) conv3x3_mma_kernel
       __syncthreads();
     }
     const float* ws = xs + T::kXFloats + n0 + gid;
+    if constexpr (kChunkSums) zero(part);
 #pragma unroll 1
     for (int ky = 0; ky < 3; ++ky) {
 #pragma unroll
@@ -247,8 +275,20 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks) conv3x3_mma_kernel
           tf32::split(wt[nj * 8], bh[nj][0], bl[nj][0]);
           tf32::split(wt[4 * kWS + nj * 8], bh[nj][1], bl[nj][1]);
         }
-        tf32::mma3_tiles(acc, ah, al, bh, bl);
+        if constexpr (kChunkSums) {
+          tf32::mma3_tiles(part, ah, al, bh, bl);
+        } else {
+          tf32::mma3_tiles(acc, ah, al, bh, bl);
+        }
       }
+    }
+    if constexpr (kChunkSums) {
+#pragma unroll
+      for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < kNT; ++nj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][nj][e] = __fadd_rn(acc[mi][nj][e], part[mi][nj][e]);
     }
   }
   tf32::wait<0>();
@@ -310,6 +350,26 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks) conv3x3_mma_kernel
     }
   }
 
+  if (a.bias != nullptr || a.relu) {
+#pragma unroll
+    for (int nj = 0; nj < kNT; ++nj) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int oc = co0 + n0 + nj * 8 + 2 * tig + k;
+        const float b = a.bias != nullptr && oc < a.co ? __ldg(a.bias + oc) : 0.0f;
+#pragma unroll
+        for (int mi = 0; mi < kMT; ++mi) {
+#pragma unroll
+          for (int e = k; e < 4; e += 2) {
+            float& v = acc[mi][nj][e];
+            if (a.bias != nullptr) v = __fadd_rn(v, b);
+            if (a.relu) v = fmaxf(v, 0.0f);
+          }
+        }
+      }
+    }
+  }
+
   const bool pairs = a.co % 2 == 0;
 #pragma unroll
   for (int mi = 0; mi < kMT; ++mi) {
@@ -336,6 +396,7 @@ using TileCo16 = Tile<16, 16, 16, 4, 1>;  // Co <= 16
 using TileCo32 = Tile<8, 16, 32, 2, 2>;   // Co <= 32
 using TileWide = Tile<8, 16, 64, 2, 2>;   // Co > 32, W > 8
 using TileSmall = Tile<8, 8, 64, 2, 2>;   // Co > 32, W <= 8
+using TileWideSums = Tile<8, 16, 64, 2, 2, 2>;  // kChunkSums, Co > 32, W > 8: 2 blocks an SM
 
 template <typename T>
 inline int tiles_of(int h, int w) {
@@ -350,9 +411,9 @@ inline int conv_tiles(int h, int w, int co) {
   return w > 8 ? tiles_of<TileWide>(h, w) : tiles_of<TileSmall>(h, w);
 }
 
-template <typename T, bool kStats, bool kGnIn>
+template <typename T, bool kStats, bool kGnIn, bool kChunkSums>
 inline cudaError_t launch_tile(const ConvArgs& a, cudaStream_t stream) {
-  constexpr auto kernel = conv3x3_mma_kernel<T, kStats, kGnIn>;
+  constexpr auto kernel = conv3x3_mma_kernel<T, kStats, kGnIn, kChunkSums>;
   const cudaError_t err = tf32::allow_smem<kernel>(T::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(tiles_of<T>(a.h, a.w), (a.co + T::kCoT - 1) / T::kCoT, a.n);
@@ -360,15 +421,19 @@ inline cudaError_t launch_tile(const ConvArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool kStats, bool kGnIn>
+// K7: launch_conv<kStats, kGnIn, false>; K6a: launch_conv<false, false, true>
+template <bool kStats, bool kGnIn, bool kChunkSums>
 inline cudaError_t launch_conv(const ConvArgs& a, cudaStream_t stream) {
   if (a.n <= 0 || a.h <= 0 || a.w <= 0 || a.ci <= 0 || a.co <= 0 || a.n > 65535) {
     return cudaErrorInvalidValue;
   }
-  if (a.co <= 16) return launch_tile<TileCo16, kStats, kGnIn>(a, stream);
-  if (a.co <= 32) return launch_tile<TileCo32, kStats, kGnIn>(a, stream);
-  if (a.w > 8) return launch_tile<TileWide, kStats, kGnIn>(a, stream);
-  return launch_tile<TileSmall, kStats, kGnIn>(a, stream);
+  if (a.co <= 16) return launch_tile<TileCo16, kStats, kGnIn, kChunkSums>(a, stream);
+  if (a.co <= 32) return launch_tile<TileCo32, kStats, kGnIn, kChunkSums>(a, stream);
+  if (a.w > 8) {
+    using Wide = std::conditional_t<kChunkSums, TileWideSums, TileWide>;
+    return launch_tile<Wide, kStats, kGnIn, kChunkSums>(a, stream);
+  }
+  return launch_tile<TileSmall, kStats, kGnIn, kChunkSums>(a, stream);
 }
 
 }  // namespace mmaconv

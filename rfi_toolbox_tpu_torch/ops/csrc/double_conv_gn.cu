@@ -161,7 +161,7 @@ extern "C" int rfi_double_conv_gn(const void* x, const void* w1, const void* g1,
   a.ci = ci;
   a.co = co;
   a.stats_out = static_cast<double2*>(stats1);
-  cudaError_t err = mmaconv::launch_conv<true, false>(a, s);
+  cudaError_t err = mmaconv::launch_conv<true, false, false>(a, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   group_stats_kernel<<<n, kApplyThreads, 0, s>>>(static_cast<const double2*>(stats1), gn1,
                                                  tiles, co, groups, h * w, eps);
@@ -177,7 +177,7 @@ extern "C" int rfi_double_conv_gn(const void* x, const void* w1, const void* g1,
   a.gamma = static_cast<const float*>(g1);
   a.beta = static_cast<const float*>(b1);
   a.groups = groups;
-  err = mmaconv::launch_conv<true, true>(a, s);
+  err = mmaconv::launch_conv<true, true, false>(a, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   group_stats_kernel<<<n, kApplyThreads, 0, s>>>(static_cast<const double2*>(stats2), gn2,
                                                  tiles, co, groups, h * w, eps);

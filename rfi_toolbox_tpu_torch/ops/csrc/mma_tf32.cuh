@@ -1,6 +1,6 @@
 // Tensor-core and copy primitives of the 3xTF32 conv kernels (K6b in
-// conv3x3.cu, conv3x3_mma.cuh's forward tile for K7): inline PTX for
-// sm_90a, no CUTLASS.
+// conv3x3.cu, conv3x3_mma.cuh's forward tile for K6a and K7): inline PTX
+// for sm_90a, no CUTLASS.
 //
 // 3xTF32 ("fast fp32", as CUTLASS's gemm/warp/mma_tensor_op_fast_f32.h):
 // each float32 operand is split as hi = tf32(a), rounded to nearest with

@@ -4,6 +4,8 @@ Counterpart of ``rfi_toolbox_tpu/ops/mad_flags.py:
 mad_flag_patches_pallas``. The kernel is ``csrc/mad_flags.cu``; its plain
 version is the pipeline's :func:`mad_flag_patches`, which the wrapper
 runs for a tensor on the CPU, and the kernel's flags are bit-equal to it.
+The kernel finds each median by an exact radix select of 4 passes of 8
+bits (a 256-bin histogram a pass).
 On a CUDA tensor the wrapper launches the kernel or raises; nothing
 falls back. Unlike the TPU kernel it takes any patch size in the kernel,
 a whole 1024 x 1024 waterfall included, and negative real input.
@@ -19,7 +21,7 @@ from . import _lib
 
 __all__ = ["mad_flag_patches", "mad_flag_patches_plain"]
 
-SHARED_KEYS = 128 * 128  # kSharedKeys in csrc/mad_flags.cu
+REGISTER_KEYS = 128 * 128  # kRegisterKeys in csrc/mad_flags.cu
 
 
 def mad_flag_patches(patches, sigma):
@@ -46,7 +48,7 @@ def mad_flag_patches(patches, sigma):
     if n == 0 or hw == 0:
         return flags.zero_()
     scratch = None
-    if hw > SHARED_KEYS:
+    if hw > REGISTER_KEYS:  # keys in a global scratch, not in registers
         scratch = torch.empty((n, hw), dtype=torch.int32, device=patches.device)
     rc = _lib.load().rfi_mad_flag_patches(
         patches.data_ptr(), flags.data_ptr(),

@@ -13,6 +13,11 @@ tests emulate that arithmetic here (_dw_mma) against float64: a short
 chain within a tenth of chip_smoke.py's gate, K6b's longest chain within
 a quarter of it, and single TF32 past the gate and at least 10x farther,
 which is why single TF32 was refused.
+
+K6a computes in 3xTF32 too, and sums each 8-channel chunk of its
+reduction apart, adding the chunks to the running sum in round-to-nearest;
+the test_3xtf32_k6a_* tests emulate that (_conv_mma) at 256 and 512 input
+channels against float64 and against one running accumulator.
 """
 
 import re
@@ -25,7 +30,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from chip_smoke import DW_RTOL
+from chip_smoke import CONV_RTOL, DW_RTOL
 from rfi_toolbox_tpu.ops import conv3x3 as jax_conv3x3
 from rfi_toolbox_tpu.ops import conv3x3_bias_relu as jax_conv3x3_bias_relu
 from rfi_toolbox_tpu.ops.conv3x3 import _dw_call
@@ -239,8 +244,8 @@ def test_3xtf32_dw_error_budget(rng):
     assert err1 >= 10 * err3, (err1, err3)
 
 
-def _dw_source_constant(name):
-    src = Path(__file__).resolve().parents[1] / "rfi_toolbox_tpu_torch/ops/csrc/conv3x3.cu"
+def _source_constant(name, source="conv3x3.cu"):
+    src = Path(__file__).resolve().parents[1] / "rfi_toolbox_tpu_torch/ops/csrc" / source
     return int(re.search(rf"constexpr int {name} = (\d+);", src.read_text()).group(1))
 
 
@@ -249,10 +254,78 @@ def test_3xtf32_dw_longest_chain(rng):
     kDwPixels pixels (read from the CUDA source), as 8 x 8 images at 64 x
     64 channels: the truncation grows with the chain, so this is K6b's
     worst case; within a quarter of the gate, single TF32 past it."""
-    pixels = _dw_source_constant("kDwMaxChain") * _dw_source_constant("kDwPixels")
+    pixels = _source_constant("kDwMaxChain") * _source_constant("kDwPixels")
     x = torch.from_numpy(rng.standard_normal((pixels // 64, 8, 8, 64)).astype(np.float32))
     g = torch.from_numpy(rng.standard_normal((pixels // 64, 8, 8, 64)).astype(np.float32))
     err3, err1 = _dw_errors(x, g)
     assert err3 <= DW_RTOL / 4, err3
     assert err1 > DW_RTOL, err1
     assert err1 >= 10 * err3, (err1, err3)
+
+
+# (x part, w part) of each MMA of a product, in K6a's order (mma3_tiles:
+# all lo*hi, then hi*lo, then hi*hi; A is the input, B the weights)
+FORWARD = [(_lo, _hi), (_hi, _lo), (_hi, _hi)]
+
+
+def _conv_mma(x, w, b, chunk_sums):
+    """relu(conv3x3_SAME(x, w) + b), NHWC x, HWIO w, as K6a's m16n8k8 MMAs
+    form it on the tensor cores in 3xTF32: K in steps of one tap x kKC = 8
+    input channels (read from conv3x3_mma.cuh; channel chunks outer, taps
+    inner), each MMA adding its exact
+    products to a float32 accumulator that truncates (_chop). With
+    chunk_sums, as K6a: each chunk's 27 MMAs go into a zeroed accumulator
+    that is then added to the running sum in float32, rounded to nearest;
+    without, one accumulator for all (K7's scheme). Then the bias and the
+    ReLU in float32."""
+    n, h, wd, ci = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    cols = torch.stack([xp[:, ky:ky + h, kx:kx + wd] for ky in range(3) for kx in range(3)], 1)
+    pairs = [(a(cols).double(), c(w).double().reshape(9, ci, -1)) for a, c in FORWARD]
+    chunk = _source_constant("kKC", "conv3x3_mma.cuh")  # input channels an MMA takes
+    acc = torch.zeros(n, h, wd, w.shape[3])
+    for c in range(0, ci, chunk):
+        part = torch.zeros_like(acc) if chunk_sums else acc
+        for t in range(9):
+            for xa, wa in pairs:
+                part = _chop(part.double() + xa[:, t, ..., c:c + chunk] @ wa[t, c:c + chunk])
+        acc = acc + part if chunk_sums else part
+    return torch.relu(acc + b)
+
+
+def _k6a_errors(rng, ci, co=32, side=8, n=2):
+    """(chunk sums, one running accumulator) emulated errors of a ci -> co
+    conv + bias + ReLU on ReLU'd normal inputs, weights ~ N(0, 1/(9 ci)),
+    against float64, as shares of the output's max."""
+    x = torch.relu(torch.from_numpy(rng.standard_normal((n, side, side, ci)).astype(np.float32)))
+    w = torch.from_numpy((rng.standard_normal((3, 3, ci, co)) / np.sqrt(9 * ci)).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.standard_normal(co)).astype(np.float32))
+    want = torch.relu(F.conv2d(x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1),
+                               b.double(), padding=1)).permute(0, 2, 3, 1)
+    scale = float(want.abs().max())
+    return [float((_conv_mma(x, w, b, sums).double() - want).abs().max()) / scale
+            for sums in (True, False)]
+
+
+def test_3xtf32_k6a_emulation_matches_plain_conv(rng):
+    """The emulation itself computes the conv: at a few channels it agrees
+    with K6a's plain version to float32 rounding."""
+    x = torch.from_numpy(rng.standard_normal((1, 6, 5, 11)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((3, 3, 11, 5)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(5).astype(np.float32))
+    want = conv3x3_call(x, w, b, relu=True)
+    for sums in (True, False):
+        np.testing.assert_allclose(_conv_mma(x, w, b, sums).numpy(), want.numpy(),
+                                   atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("ci", [256, 512])
+def test_3xtf32_k6a_chunk_sums(rng, ci):
+    """K6a's deepest reductions: 256 input channels (the folded UNet16's
+    8 x 8 bottleneck and the decoder after it) and 512 (the dx convs of
+    UNet32's bottleneck). With K6a's per-chunk sums the truncating
+    accumulation stays within a quarter of chip_smoke.py's 1e-5 gate;
+    K7's one running accumulator would be at least 10x farther off."""
+    chunked, running = _k6a_errors(rng, ci)
+    assert chunked <= CONV_RTOL / 4, chunked
+    assert running >= 10 * chunked, (running, chunked)

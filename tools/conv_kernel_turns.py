@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time K6b (conv3x3_dw) and K7 (double_conv_gn_relu) of one or more
-checkouts of the port on one card, in turns.
+"""Time K6a (conv3x3_call), K6b (conv3x3_dw), K7 (double_conv_gn_relu)
+and K5 (mad_flag_patches) of one or more checkouts of the port on one
+card, in turns.
 
     python3 tools/conv_kernel_turns.py                       # this checkout
     python3 tools/conv_kernel_turns.py build/old . . build/old
     python3 tools/conv_kernel_turns.py --json out.json build/old . . build/old
+    python3 tools/conv_kernel_turns.py --only K6a,K5 build/old . . build/old
 
 Each ROOT is a checkout (the repo root, or an older tree unpacked under
 the git-ignored build/); each is run in its own process, in the order
@@ -13,12 +15,22 @@ within one call. A process imports ``rfi_toolbox_tpu_torch`` from its
 ROOT, builds that tree's kernels into ROOT/build/torch_kernels, and at
 batch 128 times:
 
+- K6a on the 18 conv3x3 layers of UNet(16) (the folded UNet16 predictor's
+  convs, with bias and ReLU), as "K6a", and on the 17 dx convolutions of
+  UNet(32)'s training step (every layer but the 3-channel first one: the
+  output gradient through the rotated weights, no bias, no ReLU), as
+  "K6a_dx",
 - K6b on the 18 conv3x3 layers of UNet(32) (128 x 128 input, depth 4),
 - K7 on the 9 DoubleConvs of UNet(16, norm="group"), 8 groups,
+- K5 on 512 complex64 patches of 128 x 128 (noise and RFI stripes) at
+  sigma 5, as "K5", on 512 such patches all of one value (the worst case
+  for its histograms' atomics), as "K5_equal", and on 8 whole 1024 x 1024
+  waterfalls, as "K5_whole",
 
-on seeded random inputs (the kernels do the same work whatever the
+on seeded random inputs (the convolutions do the same work whatever the
 values), each against its plain PyTorch version (TF32 off) for the
-error, as a share of the output's max. The layer shapes are read by
+error, as a share of the output's max (K5: the count of flags that
+differ). ``--only`` names the kernels to time (default: all). The layer shapes are read by
 forward hooks from ROOT's own models; the timing (``cuda_ms``) and the
 direct-equivalent GFLOP (``direct_gflop``) are this checkout's
 ``chip_smoke.py``'s. Prints the card's name and power limit, one line
@@ -38,6 +50,7 @@ from pathlib import Path
 
 BATCH = 128
 SIDE = 128
+KERNELS = ("K6a", "K6a_dx", "K6b", "K7", "K5", "K5_equal", "K5_whole")
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -63,12 +76,13 @@ def shapes_of(torch, model, kind):
     return seen
 
 
-def worker(root):
+def worker(root, only):
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
     from rfi_toolbox_tpu_torch import ops
     from rfi_toolbox_tpu_torch.models.unet import DoubleConv, UNet
+    from rfi_toolbox_tpu_torch.ops.conv3x3 import rotate_weight
     from rfi_toolbox_tpu_torch.utils import set_tf32
 
     smoke = load_chip_smoke()
@@ -78,7 +92,7 @@ def worker(root):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     lib = ops._lib.load()
-    rows = {"K6b": [], "K7": []}
+    rows = {name: [] for name in only}
 
     def err(got, want):
         return float((got - want).abs().max() / want.abs().max())
@@ -89,42 +103,93 @@ def worker(root):
     def is_conv3x3(m):
         return isinstance(m, torch.nn.Conv2d) and m.kernel_size == (3, 3)
 
-    for s, ci, co in shapes_of(torch, UNet(init_features=32, norm="batch"), is_conv3x3):
-        x = torch.randn(BATCH, s, s, ci, device=dev, generator=gen)
-        g = torch.randn(BATCH, s, s, co, device=dev, generator=gen)
-        rows["K6b"].append({
-            "shape": f"({BATCH},{s},{s},{ci})x({co})",
-            "gflop": smoke.direct_gflop(BATCH, s, s, ci, co),
-            "err": err(ops.conv3x3_dw(x, g), ops.conv3x3_dw_plain(x, g)),
-            "ms": ms(lambda: ops.conv3x3_dw(x, g))})
-        del x, g
-    gn_unet = UNet(init_features=16, norm="group")
-    for s, ci, co in shapes_of(torch, gn_unet, lambda m: isinstance(m, DoubleConv)):
-        x = torch.relu(torch.randn(BATCH, s, s, ci, device=dev, generator=gen))
-        w1 = torch.randn(3, 3, ci, co, device=dev, generator=gen) / (9 * ci) ** 0.5
-        w2 = torch.randn(3, 3, co, co, device=dev, generator=gen) / (9 * co) ** 0.5
-        g1, g2 = (1 + 0.3 * torch.randn(co, device=dev, generator=gen) for _ in range(2))
-        b1, b2 = (0.3 * torch.randn(co, device=dev, generator=gen) for _ in range(2))
-        args = (x, w1, g1, b1, w2, g2, b2)
-        rows["K7"].append({
-            "shape": f"({BATCH},{s},{s},{ci})->{co}",
-            "gflop": smoke.direct_gflop(BATCH, s, s, ci, co) + smoke.direct_gflop(BATCH, s, s, co, co),
-            "err": err(ops.double_conv_gn_relu(*args, num_groups=8),
-                       ops.double_conv_gn_relu_plain(*args, num_groups=8)),
-            "ms": ms(lambda: ops.double_conv_gn_relu(*args, num_groups=8))})
-        del x, args
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    unet32 = shapes_of(torch, UNet(init_features=32, norm="batch"), is_conv3x3)
+    if "K6a" in only:
+        for s, ci, co in shapes_of(torch, UNet(init_features=16, norm="batch"), is_conv3x3):
+            x = torch.relu(randn(BATCH, s, s, ci))
+            w, b = randn(3, 3, ci, co) / (9 * ci) ** 0.5, 0.3 * randn(co)
+            rows["K6a"].append({
+                "shape": f"({BATCH},{s},{s},{ci})->{co}",
+                "gflop": smoke.direct_gflop(BATCH, s, s, ci, co),
+                "err": err(ops.conv3x3_call(x, w, b, relu=True),
+                           ops.conv3x3_call_plain(x, w, b, relu=True)),
+                "ms": ms(lambda: ops.conv3x3_call(x, w, b, relu=True))})
+            del x
+    if "K6a_dx" in only:
+        for s, ci, co in unet32[1:]:
+            g, wr = randn(BATCH, s, s, co), rotate_weight(randn(3, 3, ci, co) / (9 * ci) ** 0.5)
+            rows["K6a_dx"].append({
+                "shape": f"({BATCH},{s},{s},{co})->{ci}",
+                "gflop": smoke.direct_gflop(BATCH, s, s, co, ci),
+                "err": err(ops.conv3x3_call(g, wr), ops.conv3x3_call_plain(g, wr)),
+                "ms": ms(lambda: ops.conv3x3_call(g, wr))})
+            del g
+    if "K6b" in only:
+        for s, ci, co in unet32:
+            x, g = randn(BATCH, s, s, ci), randn(BATCH, s, s, co)
+            rows["K6b"].append({
+                "shape": f"({BATCH},{s},{s},{ci})x({co})",
+                "gflop": smoke.direct_gflop(BATCH, s, s, ci, co),
+                "err": err(ops.conv3x3_dw(x, g), ops.conv3x3_dw_plain(x, g)),
+                "ms": ms(lambda: ops.conv3x3_dw(x, g))})
+            del x, g
+    if "K7" in only:
+        gn_unet = UNet(init_features=16, norm="group")
+        for s, ci, co in shapes_of(torch, gn_unet, lambda m: isinstance(m, DoubleConv)):
+            x = torch.relu(randn(BATCH, s, s, ci))
+            w1 = randn(3, 3, ci, co) / (9 * ci) ** 0.5
+            w2 = randn(3, 3, co, co) / (9 * co) ** 0.5
+            g1, g2 = (1 + 0.3 * randn(co) for _ in range(2))
+            b1, b2 = (0.3 * randn(co) for _ in range(2))
+            args = (x, w1, g1, b1, w2, g2, b2)
+            rows["K7"].append({
+                "shape": f"({BATCH},{s},{s},{ci})->{co}",
+                "gflop": smoke.direct_gflop(BATCH, s, s, ci, co)
+                + smoke.direct_gflop(BATCH, s, s, co, co),
+                "err": err(ops.double_conv_gn_relu(*args, num_groups=8),
+                           ops.double_conv_gn_relu_plain(*args, num_groups=8)),
+                "ms": ms(lambda: ops.double_conv_gn_relu(*args, num_groups=8))})
+            del x, args
+    if "K5" in only:
+        amp = 1 + 0.1 * randn(512, SIDE, SIDE)
+        amp[:, 40:43] += 1e6  # a stripe to flag in every patch
+        z = torch.polar(amp, 6.3 * torch.rand(amp.shape, device=dev, generator=gen))
+        flags = ops.mad_flag_patches(z, 5.0)
+        rows["K5"].append({
+            "shape": "(512,128,128) complex64", "gflop": 0.0,
+            "err": float((flags != ops.mad_flag_patches_plain(z, 5.0)).sum()),
+            "ms": ms(lambda: ops.mad_flag_patches(z, 5.0))})
+    if "K5_equal" in only:
+        z = torch.full((512, SIDE, SIDE), 3 + 4j, dtype=torch.complex64, device=dev)
+        flags = ops.mad_flag_patches(z, 5.0)
+        rows["K5_equal"].append({
+            "shape": "(512,128,128) complex64, all equal", "gflop": 0.0,
+            "err": float((flags != ops.mad_flag_patches_plain(z, 5.0)).sum()),
+            "ms": ms(lambda: ops.mad_flag_patches(z, 5.0))})
+    if "K5_whole" in only:
+        amp = 1 + 0.1 * randn(8, 8 * SIDE, 8 * SIDE)
+        amp[:, 100:103] += 1e6
+        z = torch.polar(amp, 6.3 * torch.rand(amp.shape, device=dev, generator=gen))
+        flags = ops.mad_flag_patches(z, 5.0)
+        rows["K5_whole"].append({
+            "shape": "(8,1024,1024) complex64", "gflop": 0.0,
+            "err": float((flags != ops.mad_flag_patches_plain(z, 5.0)).sum()),
+            "ms": smoke.cuda_ms(lambda: ops.mad_flag_patches(z, 5.0), calls=3, windows=3)})
     print(json.dumps({"root": root, "build_s": lib.build_seconds,
                       "device": torch.cuda.get_device_name(0), "rows": rows}), flush=True)
 
 
-def main(roots, json_path=None):
+def main(roots, only, json_path=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
     print(smi, flush=True)
     runs = []
     for i, root in enumerate(roots):
-        out = subprocess.run([sys.executable, __file__, "--worker", root],
+        out = subprocess.run([sys.executable, __file__, "--worker", root, ",".join(only)],
                              capture_output=True, text=True)
         if out.returncode != 0:
             print(out.stdout[-3000:], out.stderr[-6000:], file=sys.stderr)
@@ -133,28 +198,36 @@ def main(roots, json_path=None):
         runs.append(run)
         for name, rows in run["rows"].items():
             for r in rows:
-                print(f"run {i} {root} {name} {r['shape']}: {r['ms']:.4f} ms, "
-                      f"{r['gflop'] / r['ms']:.1f} TFLOP/s direct, err {r['err']:.1e}")
+                rate = f", {r['gflop'] / r['ms']:.1f} TFLOP/s direct" if r["gflop"] else ""
+                print(f"run {i} {root} {name} {r['shape']}: {r['ms']:.4f} ms{rate}, "
+                      f"err {r['err']:.1e}")
             total = sum(r["ms"] for r in rows)
             gflop = sum(r["gflop"] for r in rows)
-            print(f"run {i} {root} {name} sum: {total:.3f} ms ({gflop / total:.1f} TFLOP/s "
-                  f"direct), worst err {max(r['err'] for r in rows):.1e}; build "
-                  f"{run['build_s']:.1f} s", flush=True)
+            rate = f" ({gflop / total:.1f} TFLOP/s direct)" if gflop else ""
+            print(f"run {i} {root} {name} sum: {total:.4f} ms{rate}, worst err "
+                  f"{max(r['err'] for r in rows):.1e}; build {run['build_s']:.1f} s", flush=True)
     if json_path:
         Path(json_path).parent.mkdir(parents=True, exist_ok=True)
         Path(json_path).write_text(json.dumps({"card": smi, "runs": runs}, indent=1))
     summary = {name: [round(sum(r["ms"] for r in run["rows"][name]), 4) for run in runs]
-               for name in ("K6b", "K7")}
+               for name in only}
     print(json.dumps({"card": smi, "roots": roots, "sum_ms": summary}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--worker":
-        worker(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--worker":
+        worker(sys.argv[2], sys.argv[3].split(","))
     else:
         args = sys.argv[1:]
-        out = None
-        if args[:1] == ["--json"]:
-            out, args = args[1], args[2:]
-        sys.exit(main(args or ["."], out))
+        out, only = None, list(KERNELS)
+        while args[:1] in (["--json"], ["--only"]):
+            if args[0] == "--json":
+                out = args[1]
+            else:
+                only = args[1].split(",")
+                unknown = set(only) - set(KERNELS)
+                if unknown:
+                    raise SystemExit(f"conv_kernel_turns: unknown kernels {sorted(unknown)}")
+            args = args[2:]
+        sys.exit(main(args or ["."], only, out))
