@@ -14,7 +14,8 @@ fails (non-zero exit) if any phase fails:
    ``-Xptxas -v``) and the count of tensor-core TF32 MMAs in the SASS of
    K6a's, K6b's and K7's kernels (``cuobjdump -sass``), which must be the
    three MMAs a product of 3xTF32 for every tile of the kernel's loop
-   body;
+   body; the same report of K1's and K2's kernel, and its cluster launch
+   (clusters of 4 CTAs that fit on the card, CTAs an SM);
 3. K4 (fused_extract_channels) against its plain PyTorch version on the
    card: 512 complex64 128x128 patches cut from 8 waterfalls of 1024 x
    1024, an odd N, a constant patch and real float32 input, max abs diff
@@ -36,9 +37,14 @@ fails (non-zero exit) if any phase fails:
    (fused_plane_gather_transform) against their plain versions on the
    512 base patches of 8 generated 1024 x 1024 waterfalls and the
    K=1920 indices of a real static selection (repeats, all four
-   variants), plus an odd K, a constant patch and real float32 input
-   (the patches' amplitudes): K1 and K2 within 2e-5, K3 bit-equal; time
-   per call and bound;
+   variants), plus an odd K, a constant patch, real float32 input (the
+   patches' amplitudes), NaN pixels (and a patch of NaN only), ragged
+   patch sizes (3 x 5, 5 x 7, 33 x 128, and 128 x 127, whose rows take
+   1-pixel groups), and for K1 repeated (base, plane) pairs, base
+   patches no output selects and one base patch selected 150 times
+   (more than one list of its outputs): K1 and K2 within 2e-5 (NaN where
+   the plain version has NaN), shapes equal, K3 bit-equal; time per call
+   (K1's scan for its outputs inside the call) and bound;
 8. static prep, Preprocessor.create_dataset(static_num_patches=1920), on
    the 'auto' route (K1) and the 'planes' route (K2 + K3), and with MAD
    flags (K5), then on real input (the waterfalls' amplitudes) on both
@@ -102,6 +108,7 @@ checkpoints of phase 13).
 """
 
 import copy
+import ctypes
 import json
 import re
 import shutil
@@ -174,7 +181,13 @@ TRAIN_LOSS_RTOL = 1e-4  # the float32 UNet32 step through K6a + K6b vs cuDNN
 GRAD_RTOL = 1e-3  # all parameters, relative L2, against cuDNN's step
 GRAD_F64_FLOOR = 1e-4
 MASK_AGREE = 0.999  # share of pixels two forwards must flag alike
-PLANE_OPS_PER_PIXEL = 60  # |z|, log10, 3 gradients, min/max, windows, atan2, affines
+# Operations of K1's and K2's function a base pixel: the exact |z| (a
+# division, a float64 FMA, a square root: ~25), log10 (~20), atan2 (~40),
+# three gradients (~30), min/max, windows and affines (~35). A count of 60
+# leaves out the work inside log10 and atan2, which was 40-45% of the time
+# of the one-block-per-patch kernels (PERF.md). The bound is by bytes at
+# either count.
+PLANE_OPS_PER_PIXEL = 150
 
 
 def direct_gflop(n, h, w, ci, co):
@@ -204,14 +217,18 @@ def hmma_expected(mangled):
 
 
 def kernel_report(lib, nvcc):
-    """Print registers, spills and shared memory of the conv kernels and
-    K5's from nvcc.log, and the tensor-core TF32 MMAs in the SASS of each;
+    """Print registers, spills and shared memory of the conv kernels, K5's
+    and K1's and K2's from nvcc.log, and the tensor-core TF32 MMAs in the
+    SASS of each; print how many clusters of 4 CTAs of K1's and K2's kernel
+    fit on the card at 128 x 128 (cudaOccupancyMaxActiveClusters), and
+    fail if none does or if one of its 8 instances is missing;
     fail if a 3xTF32 kernel (K6b's conv3x3_dw_kernel, K6a's and K7's
     conv3x3_mma_kernel) holds another count than hmma_expected's, or if
     K6a's four tiles (kChunkSums true) are missing."""
     text = (lib.path.parent / "nvcc.log").read_text()
     kernels = ("conv3x3_dw_kernel", "conv3x3_mma_kernel", "group_stats_kernel",
-               "gn_relu_kernel", "sum_splits_kernel", "mad_flags_kernel")
+               "gn_relu_kernel", "sum_splits_kernel", "mad_flags_kernel",
+               "cluster_extract_kernel")
     tool = Path(nvcc).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib.path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -245,6 +262,15 @@ def kernel_report(lib, nvcc):
                     f"SASS, not 3xTF32's {want}")
     k6a = [r for r in pretty if "conv3x3_mma_kernel" in r and r.split("(")[0].endswith("true>")]
     require(len(k6a) == 4, f"K6a's tensor-core tiles: {len(k6a)} of 4 compiled")
+    extract = [r for r in names if "cluster_extract_kernel" in r]
+    require(len(extract) == 8, f"K1's and K2's kernel: {len(extract)} of 8 instances compiled")
+    fit = (ctypes.c_int * 2)()
+    for gather, name in ((1, "K1"), (0, "K2")):
+        for is_complex in (1, 0):
+            rc = lib.rfi_channel_planes_occupancy(gather, is_complex, PATCH, PATCH, fit)
+            log(f"  {name} ({'complex64' if is_complex else 'float32'}, 128^2): clusters of 4 "
+                f"CTAs on the card at once {fit[1]}, CTAs an SM {fit[0]} (rc {rc})")
+            require(rc == 0 and fit[1] > 0, f"{name}: no cluster of 4 CTAs fits on the card")
 
 
 def conv3x3_flops(n, h, w, ci, co):
@@ -584,29 +610,56 @@ def main():
     px = PATCH * PATCH
     const = torch.full((4, PATCH, PATCH), 2 + 1j, dtype=torch.complex64, device=dev)
     real_base = base.abs()  # float32 amplitudes
+    nan_base = base[:64].clone()
+    nan_base[(torch.rand(nan_base.shape, generator=g) < 0.01).to(dev)] = complex(float("nan"), 0.0)
+    nan_base[5] = complex(float("nan"), 0.0)  # a patch of NaN only
+    ragged = {"3x5": base[:16, :3, :5], "5x7": base[:16, :5, :7],
+              "33x128": base[:16, :33], "128x127": base[:16, :, :127]}
+    ragged = {k: v.contiguous() for k, v in ragged.items()}
+
+    def extract_err(got, want, what):
+        """Max |kernel - plain| where the plain version is not NaN; fails
+        on another shape, or on NaN or inf where the plain version has no NaN."""
+        worst = 0.0
+        for a, b in zip(got, want):
+            require(a.shape == b.shape, f"{what}: shape {tuple(a.shape)}, plain {tuple(b.shape)}")
+            nan = torch.isnan(b)
+            require(torch.equal(torch.isnan(a), nan) and bool(torch.isfinite(a[~nan]).all()),
+                    f"{what}: NaN or inf where the plain version has none")
+            if bool((~nan).any()):
+                worst = max(worst, float((a[~nan] - b[~nan]).abs().max()))
+        return worst
+
     k2_err = {}
-    for name, x in {f"M={m_base}": base, "constant": const,
-                    "real": real_base}.items():
+    for name, x in {f"M={m_base}": base, "constant": const, "real": real_base,
+                    "NaN pixels": nan_base, **ragged}.items():
         got = ops.fused_extract_channel_planes(x)
         want = ops.fused_extract_channel_planes_plain(x)
         torch.cuda.synchronize()
-        require(all(bool(torch.isfinite(g).all()) for g in got), f"K2 {name}: non-finite")
-        k2_err[name] = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        k2_err[name] = extract_err(got, want, f"K2 {name}")
     planes = ops.fused_extract_channel_planes(base)
     odd = slice(0, 37)
+    small, even = base_idx < 16, base_idx % 2 == 0
+    many = torch.cat([torch.full((150,), 9, device=dev), torch.tensor([1, 4], device=dev)])
+    many = many[torch.randperm(many.numel(), generator=g).to(dev)]
     k1_cases = {
         f"K={K_STATIC}": (base, base_idx, pidx),
         "odd K=37": (base, base_idx[odd], pidx[odd]),
         "constant": (const, torch.tensor([0, 3, 1, 2, 3], device=dev),
                      torch.tensor([0, 1, 2, 0, 2], device=dev)),
         "real": (real_base, base_idx, pidx),
+        "NaN pixels": (nan_base, base_idx[base_idx < 64], pidx[base_idx < 64]),
+        "repeated pairs": (base, torch.tensor([7, 7, 7, 3, 7, 3, 7], device=dev),
+                           torch.tensor([2, 2, 2, 0, 2, 1, 2], device=dev)),
+        "odd bases unselected": (base, base_idx[even], pidx[even]),
+        "one base 150 times": (base, many, torch.randint(0, 3, many.shape, generator=g).to(dev)),
+        **{name: (x, base_idx[small], pidx[small]) for name, x in ragged.items()},
     }
     k1_err = {}
     for name, args in k1_cases.items():
         got, want = ops.fused_gather_extract(*args), ops.fused_gather_extract_plain(*args)
         torch.cuda.synchronize()
-        require(all(g.shape == w.shape for g, w in zip(got, want)), f"K1 {name}: shape")
-        k1_err[name] = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        k1_err[name] = extract_err(got, want, f"K1 {name}")
     k3_diff = {}
     for name, idx in {f"K={K_STATIC}": slice(None), "odd K=37": odd}.items():
         args = (planes, base_idx[idx], pidx[idx], variant[idx])
@@ -634,7 +687,7 @@ def main():
         "K1": (lambda: ops.fused_gather_extract(base, base_idx, pidx),
                lambda: ops.fused_gather_extract_plain(base, base_idx, pidx),
                bound(n_distinct * px * 8 + K_STATIC * (2 * 4 + 3 * 4 * px),
-                     K_STATIC * px * PLANE_OPS_PER_PIXEL)),
+                     n_distinct * px * PLANE_OPS_PER_PIXEL)),
         "K3": (lambda: ops.fused_plane_gather_transform(planes, base_idx, pidx, variant),
                lambda: ops.fused_plane_gather_transform_plain(planes, base_idx, pidx, variant),
                bound((n_distinct_grad + 2 * n_distinct) * px * 4

@@ -13,12 +13,16 @@ Counterparts of ``rfi_toolbox_tpu/ops/fused_channels.py``:
 
 Each wrapper runs its plain PyTorch version (``*_plain``) for a tensor on
 the CPU, and for a CUDA tensor launches its kernel or raises; nothing
-falls back. ``<wrapper>.launches`` counts each kernel's launches. Index
-ranges are checked on the card without a host sync
+falls back. ``*_model`` (K2, K1) is a torch model of the kernel's passes
+(the 4-CTA row split with its halo rows, the min and max reduced across
+the parts, the reciprocal-and-FMA arithmetic, K1's outputs grouped by
+base patch), for the tests; no path runs it. ``<wrapper>.launches``
+counts each kernel's launches. Index ranges are checked on the card without a host sync
 (``torch._assert_async``): a bad index stops the process at its next
 synchronisation.
 """
 
+import numpy as np
 import torch
 
 from ..preprocess import pipeline as P
@@ -33,10 +37,14 @@ __all__ = [
     "fused_gather_extract_plain",
     "fused_plane_gather_transform",
     "fused_plane_gather_transform_plain",
+    "fused_extract_channel_planes_model",
+    "fused_gather_extract_model",
     "MAX_PATCH_PIXELS",
 ]
 
 MAX_PATCH_PIXELS = 128 * 128  # kMaxPixels / kMaxSide^2 in csrc/
+CLUSTER = 4  # CTAs that split a patch's rows in K1 and K2 (csrc/channel_planes.cu)
+LIST_CAP = 64  # K1's outputs of one base patch listed at a time (kListCap in csrc/)
 
 
 def _check_patches(patches, dtypes):
@@ -168,7 +176,8 @@ def fused_gather_extract(patches, base_idx, pidx):
 
     A CPU tensor goes through the plain version. On the card the patches
     must be contiguous complex64 or float32 with H * W <= 128 * 128, and
-    the indices on the same card.
+    the indices on the same card; each selected base patch is computed
+    once, and written to each output that selects it.
     """
     if patches.device.type == "cpu":
         return fused_gather_extract_plain(patches, base_idx, pidx)
@@ -184,7 +193,7 @@ def fused_gather_extract(patches, base_idx, pidx):
         return grad, amp, phase
     rc = _lib.load().rfi_fused_gather_extract(
         patches.data_ptr(), base_idx.data_ptr(), pidx.data_ptr(),
-        grad.data_ptr(), amp.data_ptr(), phase.data_ptr(), k, h, w,
+        grad.data_ptr(), amp.data_ptr(), phase.data_ptr(), m, k, h, w,
         int(patches.is_complex()), _lib.stream_of(patches),
     )
     _lib.check(rc, "fused_gather_extract")
@@ -193,6 +202,129 @@ def fused_gather_extract(patches, base_idx, pidx):
 
 
 fused_gather_extract.launches = 0
+
+
+# The kernels' folded affines (csrc/channel_planes.cu), in float32 as nvcc
+# folds the constant expressions.
+_F = np.float32
+_AMP_SCALE = _F(1) / _F(P.LOG_MAX - P.LOG_MIN)
+_AMP_SHIFT = -_F(P.LOG_MIN) / _F(P.LOG_MAX - P.LOG_MIN)
+_MEAN, _STD = P.IMAGENET_MEAN, P.IMAGENET_STD
+_INV_STD1 = _F(1) / _STD[1]
+_SHIFT = -_MEAN / _STD  # affine(0) of each plane
+_PHASE_SCALE = _F(1) / (_F(2 * np.pi) * _STD[2])
+_PHASE_SHIFT = (_F(0.5) - _MEAN[2]) / _STD[2]
+
+
+def _fma(a, b, c):
+    """fmaf(a, b, c) of float32 tensors, scalars or both: the product is
+    exact in float64 and the sum rounded to float64, then to float32 (a
+    true FMA can differ by one ulp, in rare ties)."""
+    return (torch.as_tensor(a).double() * torch.as_tensor(b).double()
+            + torch.as_tensor(c).double()).float()
+
+
+def _row_parts(h):
+    """[r0, r1) of the rows of each CTA of a cluster: ceil(h / 4) rows
+    each, the last ones empty where h < 4 or h is not a multiple."""
+    rows = -(-h // CLUSTER)
+    return [(min(h, r * rows), min(h, (r + 1) * rows)) for r in range(CLUSTER)]
+
+
+def _nan_skipping_min_max(x):
+    """Per-patch min and max of (n, rows, w), NaN skipped (fminf, fmaxf);
+    +-inf for a patch of no valid pixel."""
+    nan = torch.isnan(x)
+    return (torch.where(nan, float("inf"), x).amin(dim=(-2, -1)),
+            torch.where(nan, float("-inf"), x).amax(dim=(-2, -1)))
+
+
+def _norm(x, lo, hi, std, shift):
+    """(x - lo) / span and the affine as the kernels compute them:
+    (x - lo) * (1 / (span * std)) + shift in one FMA, ``shift`` where
+    span is not positive. lo, hi: (n,)."""
+    span = (hi - lo)[:, None, None]
+    pos = span > 0
+    scale = torch.where(pos, 1.0 / torch.where(pos, span * std, 1.0), 0.0)
+    return torch.where(pos, _fma(x - lo[:, None, None], scale, shift),
+                       torch.full_like(x, float(shift)))
+
+
+def _cluster_planes(patches, planes=(0, 1, 2)):
+    """The model of one cluster per patch of (n, h, w) patches: the
+    gradient planes in ``planes`` (a dict), the amplitude and phase
+    planes (n, h, w)."""
+    n, h, w = patches.shape
+    la = torch.log10(P.magnitude(patches) + 1e-10)
+    parts = [(r0, r1) for r0, r1 in _row_parts(h) if r1 > r0]
+    # pass 2: each part's gradients from its rows and its two halo rows
+    grads, lows, highs = [], [], []
+    for r0, r1 in parts:
+        own = la[:, r0:r1]
+        # the halo rows: the last row of the part above, the first of the
+        # part below (zeros at the patch's edge, where no difference is taken)
+        halo = torch.zeros_like(la[:, :1])
+        tile = torch.cat([la[:, r0 - 1:r0] if r0 > 0 else halo, own,
+                          la[:, r1:r1 + 1] if r1 < h else halo], dim=1)
+        row = torch.arange(r0, r1, device=la.device)[None, :, None]
+        td_fwd = torch.where(row > 0, own - tile[:, :-2], 0.0)
+        td_down = torch.where(row < h - 1, tile[:, 2:] - own, 0.0)
+        zero = torch.zeros_like(own[..., :1])
+        fd_fwd = torch.cat([zero, own[..., 1:] - own[..., :-1]], dim=-1)
+        fd_down = torch.cat([own[..., 1:] - own[..., :-1], zero], dim=-1)
+        g = {0: torch.sqrt(td_fwd * td_fwd + fd_fwd * fd_fwd),
+             1: torch.sqrt(td_down * td_down + fd_fwd * fd_fwd),
+             2: torch.sqrt(td_fwd * td_fwd + fd_down * fd_down)}
+        grads.append({v: g[v] for v in planes})
+        lows.append({v: _nan_skipping_min_max(g[v])[0] for v in planes})
+        highs.append({v: _nan_skipping_min_max(g[v])[1] for v in planes})
+    # the min and max pushed across the cluster, then pass 3
+    out = {}
+    for v in planes:
+        lo = torch.stack([part[v] for part in lows]).amin(dim=0)
+        hi = torch.stack([part[v] for part in highs]).amax(dim=0)
+        out[v] = torch.cat([_norm(part[v], lo, hi, _STD[0], _SHIFT[0])
+                            for part in grads], dim=1)
+    if patches.is_complex():
+        amp = _fma(torch.clamp(_fma(la, _AMP_SCALE, _AMP_SHIFT), 0.0, 1.0),
+                   _INV_STD1, _SHIFT[1])
+        phase = _fma(torch.atan2(patches.imag, patches.real).float(),
+                     _PHASE_SCALE, _PHASE_SHIFT)
+    else:
+        part_lo, part_hi = zip(*(_nan_skipping_min_max(la[:, r0:r1])
+                                 for r0, r1 in parts))
+        amp = _norm(la, torch.stack(part_lo).amin(dim=0),
+                    torch.stack(part_hi).amax(dim=0), _STD[1], _SHIFT[1])
+        phase = torch.full_like(la, float(-_MEAN[2] / _STD[2]))
+    return out, amp, phase
+
+
+def fused_extract_channel_planes_model(patches):
+    """Torch model of K2's passes (see the module docstring), on any
+    device: the same outputs as :func:`fused_extract_channel_planes`."""
+    grads, amp, phase = _cluster_planes(patches)
+    return torch.stack([grads[v] for v in range(3)]), amp, phase
+
+
+def fused_gather_extract_model(patches, base_idx, pidx):
+    """Torch model of K1's passes, on any device: each base patch's
+    outputs found by a scan of ``base_idx`` in order (as each cluster of
+    the kernel finds its own); each selected base patch computed once,
+    with only the gradient planes its outputs select; each output written
+    from it. An output that no scan reaches stays NaN."""
+    m, h, w = patches.shape
+    k = base_idx.shape[0]
+    outs = tuple(torch.full((k, h, w), float("nan"), device=patches.device)
+                 for _ in range(3))
+    for b in range(m):
+        js = torch.nonzero(base_idx == b).flatten().tolist()
+        if not js:
+            continue
+        vs = [int(pidx[j]) for j in js]
+        grads, amp, phase = _cluster_planes(patches[b:b + 1], sorted(set(vs)))
+        for j, v in zip(js, vs):
+            outs[0][j], outs[1][j], outs[2][j] = grads[v][0], amp[0], phase[0]
+    return outs
 
 
 def fused_plane_gather_transform_plain(planes, base_idx, pidx, variant):

@@ -1,0 +1,186 @@
+"""Port parity: torch models of the passes of K2 and K1 on the card
+(``fused_extract_channel_planes_model`` and ``fused_gather_extract_model``
+in ``rfi_toolbox_tpu_torch/ops/fused_channels.py``: each patch's rows split
+across a cluster of 4 CTAs with halo rows from the neighbours, each plane's
+min and max reduced across the 4 parts, divisions folded into reciprocals
+and FMAs, K1's outputs found per base patch by a scan of ``base_idx``)
+against the plain versions and the JAX package, on the CPU; and the float32
+square root that ``magnitude`` takes on the card.
+
+The JAX kernels run in Pallas interpret mode, as tests/test_ops.py runs
+them, on complex input without NaN (they take no min over NaN and treat
+real input as complex); real input and NaN pixels are held to the JAX
+reference pipeline (``preprocess/pipeline.py``). Tolerance: 2e-5, the JAX
+package's own extraction bound (``ops/fused_channels.py``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rfi_toolbox_tpu.ops import fused_channels as JK
+from rfi_toolbox_tpu.preprocess import pipeline as JP
+from rfi_toolbox_tpu_torch.ops import fused_channels as F
+from rfi_toolbox_tpu_torch.preprocess import pipeline as P
+
+TOL = 2e-5
+
+
+def _complex(rng, n, h, w):
+    amp = rng.lognormal(0.0, 1.5, (n, h, w))
+    phase = rng.uniform(0, 2 * np.pi, (n, h, w))
+    return (amp * np.exp(1j * phase)).astype(np.complex64)
+
+
+def _with_nan(rng, n, h, w):
+    x = _complex(rng, n, h, w)
+    x.reshape(-1)[rng.random(x.size) < 0.05] = np.nan
+    x[-1] = np.nan  # a patch of no valid pixel
+    return x
+
+
+# name -> (patches, the JAX function held beside the plain version: "kernel"
+# (Pallas, interpret mode), "pipeline" (the reference) or None). On the CPU
+# the JAX package's log-amplitude of a constant patch varies by an ulp
+# between pixels, and its min-max gradient planes then hold 0 and 1: the
+# constant patch is held to the plain version alone.
+CASES = {
+    "16x16": (lambda rng: _complex(rng, 6, 16, 16), "kernel"),
+    "constant": (lambda rng: np.full((3, 16, 16), 2 + 1j, np.complex64), None),
+    "real f32": (lambda rng: rng.normal(size=(4, 16, 16)).astype(np.float32), "pipeline"),
+    "NaN pixels": (lambda rng: _with_nan(rng, 4, 16, 16), "pipeline"),
+    "3x5": (lambda rng: _complex(rng, 5, 3, 5), "kernel"),
+    "5x7": (lambda rng: _complex(rng, 5, 5, 7), "kernel"),
+    "33x128": (lambda rng: _complex(rng, 3, 33, 128), "kernel"),
+    "128x128": (lambda rng: _complex(rng, 2, 128, 128), "kernel"),
+}
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=0, atol=TOL)
+
+
+def _jax_planes(x, reference):
+    if reference == "kernel":
+        return JK.fused_extract_channel_planes(jnp.asarray(x), interpret=True)
+    return JP.extract_channel_planes(jnp.asarray(x))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_channel_planes_model(case):
+    make, reference = CASES[case]
+    x = make(np.random.default_rng(10))
+    got = F.fused_extract_channel_planes_model(_t(x))
+    plain = F.fused_extract_channel_planes_plain(_t(x))
+    assert [tuple(g.shape) for g in got] == [tuple(p.shape) for p in plain]
+    for g, p in zip(got, plain):
+        _close(g, p)
+    if reference:
+        for g, j in zip(got, _jax_planes(x, reference)):
+            _close(g, j)
+
+
+def _indices(rng, pattern, m):
+    """(base_idx, pidx) int32 of one index pattern over m base patches."""
+    if pattern == "odd K":  # K = 17, repeats
+        return rng.integers(0, m, 17), rng.integers(0, 3, 17)
+    if pattern == "repeated pairs":  # the same (base, pidx) again and again
+        base, plane = np.array([1, 1, 1, 0, 1, 0, 1]), np.array([2, 2, 2, 0, 2, 1, 2])
+        return base, plane
+    if pattern == "unselected bases":  # bases 1 and m-1 never selected
+        return np.array([0, 2, 0, 2, 2]) % m, np.array([0, 1, 2, 0, 0])
+    if pattern == "one base, 2 lists":  # more outputs of a base than a list holds
+        n = F.LIST_CAP + 9
+        base = np.concatenate([np.zeros(n, int), [m - 1, 0]])
+        order = rng.permutation(base.size)
+        return base[order], rng.integers(0, 3, base.size)
+    raise ValueError(pattern)
+
+
+@pytest.mark.parametrize("pattern", ["odd K", "repeated pairs", "unselected bases",
+                                     "one base, 2 lists"])
+@pytest.mark.parametrize("case", ["16x16", "constant", "real f32", "NaN pixels", "5x7"])
+def test_gather_extract_model(case, pattern):
+    make, reference = CASES[case]
+    rng = np.random.default_rng(11)
+    x = make(rng)
+    base_idx, pidx = (a.astype(np.int32) for a in _indices(rng, pattern, x.shape[0]))
+    got = F.fused_gather_extract_model(_t(x), _t(base_idx), _t(pidx))
+    plain = F.fused_gather_extract_plain(_t(x), _t(base_idx), _t(pidx))
+    for g, p in zip(got, plain):
+        assert g.shape == (base_idx.size, *x.shape[1:])
+        _close(g, p)
+    if reference == "kernel":
+        ref = JK.fused_gather_extract(jnp.asarray(x), jnp.asarray(base_idx),
+                                      jnp.asarray(pidx), interpret=True)
+    elif reference == "pipeline":
+        grad3, amp, phase = (np.asarray(a) for a in JP.extract_channel_planes(jnp.asarray(x)))
+        ref = (grad3[pidx, base_idx], amp[base_idx], phase[base_idx])
+    for g, r in zip(got, ref if reference else ()):
+        _close(g, r)
+
+
+def test_gather_extract_model_on_the_static_selection():
+    """K1's real pattern: K = 30 of the 32 virtual patches of 8 base
+    patches (4 variants), so each base is selected at most 4 times and
+    orig and T share gradient plane 0."""
+    rng = np.random.default_rng(12)
+    x = _complex(rng, 8, 32, 32)
+    virtual = rng.permutation(32)[:30]
+    base_idx = (virtual % 8).astype(np.int32)
+    pidx = np.array([0, 1, 0, 2], np.int32)[virtual // 8]
+    got = F.fused_gather_extract_model(_t(x), _t(base_idx), _t(pidx))
+    want = JK.fused_gather_extract(jnp.asarray(x), jnp.asarray(base_idx),
+                                   jnp.asarray(pidx), interpret=True)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("h, parts", [
+    (1, [(0, 1), (1, 1), (1, 1), (1, 1)]),
+    (3, [(0, 1), (1, 2), (2, 3), (3, 3)]),
+    (5, [(0, 2), (2, 4), (4, 5), (5, 5)]),
+    (33, [(0, 9), (9, 18), (18, 27), (27, 33)]),
+    (128, [(0, 32), (32, 64), (64, 96), (96, 128)]),
+])
+def test_row_parts(h, parts):
+    """Each CTA of a cluster owns ceil(h / 4) rows; the rows tile [0, h)."""
+    assert F._row_parts(h) == parts
+
+
+def test_float32_sqrt_equals_float64_sqrt_rounded_on_1_2():
+    """Every float32 s in [1, 2] (the range of fma(r, r, 1) in
+    ``magnitude``): the float32 square root the kernels take equals the
+    float64 square root rounded to float32 that the plain version takes."""
+    s = np.arange(0x3F800000, 0x40000001, dtype=np.uint32).view(np.float32)
+    single = np.sqrt(s)
+    double = np.sqrt(s.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(single.view(np.uint32), double.view(np.uint32))
+
+
+def test_magnitude_with_float32_root_bit_equal():
+    """``magnitude`` with the float32 root, as the kernels compute it, is
+    bit-equal to the plain version's on random and edge values."""
+    rng = np.random.default_rng(13)
+    parts = np.concatenate([
+        rng.lognormal(0.0, 8.0, 20000), rng.normal(size=20000),
+        [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, 3.4e38, 1e-30, 1.0]]).astype(np.float32)
+    re = rng.permutation(parts)
+    im = rng.permutation(parts)
+    a, b = np.abs(re), np.abs(im)
+    larger, smaller = np.maximum(a, b), np.minimum(a, b)
+    ok = (larger != 0) & (smaller != np.inf)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        ratio = np.where(ok, smaller / np.where(ok, larger, 1), 0).astype(np.float32)
+    s = (ratio.astype(np.float64) ** 2 + 1.0).astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        kernel = np.sqrt(s) * larger
+    plain = P.magnitude(torch.complex(_t(re), _t(im))).numpy()
+    nan = np.isnan(plain)
+    np.testing.assert_array_equal(np.isnan(kernel), nan)
+    np.testing.assert_array_equal(kernel[~nan].view(np.uint32), plain[~nan].view(np.uint32))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time K6a (conv3x3_call), K6b (conv3x3_dw), K7 (double_conv_gn_relu)
-and K5 (mad_flag_patches) of one or more checkouts of the port on one
-card, in turns.
+"""Time K6a (conv3x3_call), K6b (conv3x3_dw), K7 (double_conv_gn_relu),
+K5 (mad_flag_patches), K1 (fused_gather_extract), K2
+(fused_extract_channel_planes) and K4 (fused_extract_channels) of one or
+more checkouts of the port on one card, in turns.
 
     python3 tools/conv_kernel_turns.py                       # this checkout
     python3 tools/conv_kernel_turns.py build/old . . build/old
@@ -26,11 +27,17 @@ batch 128 times:
   sigma 5, as "K5", on 512 such patches all of one value (the worst case
   for its histograms' atomics), as "K5_equal", and on 8 whole 1024 x 1024
   waterfalls, as "K5_whole",
+- K2 and K4 on the same 512 patches, K1 on them with K=1920 outputs: a
+  random 1920 of the 2048 virtual patches (512 base patches x 4
+  variants), so that base patches repeat, at most 4 times, and the
+  (base, gradient plane) pair repeats where variants orig and T meet
+  (the shape of the training path's static selection),
 
 on seeded random inputs (the convolutions do the same work whatever the
 values), each against its plain PyTorch version (TF32 off) for the
 error, as a share of the output's max (K5: the count of flags that
-differ). ``--only`` names the kernels to time (default: all). The layer shapes are read by
+differ; K1, K2, K4: the max abs difference, their gate). ``--only``
+names the kernels to time (default: all). The layer shapes are read by
 forward hooks from ROOT's own models; the timing (``cuda_ms``) and the
 direct-equivalent GFLOP (``direct_gflop``) are this checkout's
 ``chip_smoke.py``'s. Prints the card's name and power limit, one line
@@ -50,7 +57,7 @@ from pathlib import Path
 
 BATCH = 128
 SIDE = 128
-KERNELS = ("K6a", "K6a_dx", "K6b", "K7", "K5", "K5_equal", "K5_whole")
+KERNELS = ("K6a", "K6a_dx", "K6b", "K7", "K5", "K5_equal", "K5_whole", "K1", "K2", "K4")
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -178,6 +185,29 @@ def worker(root, only):
             "shape": "(8,1024,1024) complex64", "gflop": 0.0,
             "err": float((flags != ops.mad_flag_patches_plain(z, 5.0)).sum()),
             "ms": smoke.cuda_ms(lambda: ops.mad_flag_patches(z, 5.0), calls=3, windows=3)})
+    if {"K1", "K2", "K4"} & set(only):
+        amp = 1 + 0.1 * randn(512, SIDE, SIDE)
+        amp[:, 40:43] += 1e6
+        z = torch.polar(amp, 6.3 * torch.rand(amp.shape, device=dev, generator=gen))
+        virtual = torch.randperm(4 * 512, device=dev, generator=gen)[:1920]
+        base_idx = virtual % 512
+        pidx = torch.tensor([0, 1, 0, 2], device=dev)[virtual // 512]
+
+        def abs_err(got, want):
+            return max(float((g - w).abs().max()) for g, w in zip(got, want))
+        cases = {"K1": (ops.fused_gather_extract, ops.fused_gather_extract_plain,
+                        (z, base_idx, pidx), "(512,128,128) complex64, K=1920"),
+                 "K2": (ops.fused_extract_channel_planes,
+                        ops.fused_extract_channel_planes_plain, (z,),
+                        "(512,128,128) complex64"),
+                 "K4": (ops.fused_extract_channels, ops.fused_extract_channels_plain,
+                        (z,), "(512,128,128) complex64")}
+        for name, (fn, plain, args, shape) in cases.items():
+            if name in only:
+                got, want = fn(*args), plain(*args)
+                got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+                rows[name].append({"shape": shape, "gflop": 0.0, "err": abs_err(got, want),
+                                   "ms": smoke.cuda_ms(lambda: fn(*args))})
     print(json.dumps({"root": root, "build_s": lib.build_seconds,
                       "device": torch.cuda.get_device_name(0), "rows": rows}), flush=True)
 
