@@ -14,12 +14,18 @@ fails (non-zero exit) if any phase fails:
    ``-Xptxas -v``) and the count of tensor-core TF32 MMAs in the SASS of
    K6a's, K6b's and K7's kernels (``cuobjdump -sass``), which must be the
    three MMAs a product of 3xTF32 for every tile of the kernel's loop
-   body; the same report of K1's and K2's kernel, and its cluster launch
-   (clusters of 4 CTAs that fit on the card, CTAs an SM);
+   body; the same report of K1's, K2's and K4's kernel (one template,
+   12 instances), its dynamic shared memory and its cluster launch
+   (clusters of 4 CTAs that fit on the card, CTAs an SM), for each of
+   the three;
 3. K4 (fused_extract_channels) against its plain PyTorch version on the
    card: 512 complex64 128x128 patches cut from 8 waterfalls of 1024 x
-   1024, an odd N, a constant patch and real float32 input, max abs diff
-   <= 2e-5; time per call (CUDA events, see ``cuda_ms``);
+   1024, an odd N, a constant patch, real float32 input, NaN pixels (and
+   a patch of NaN only), ragged patch sizes (3 x 5, 5 x 7, 33 x 128, 128
+   x 127) and input 8 bytes off 16-byte alignment (the last two take
+   1-pixel groups): max abs diff <= 2e-5, NaN where the plain version has
+   NaN and no inf (``extract_err``); time per call (CUDA events, see
+   ``cuda_ms``);
 4. K5 (mad_flag_patches) at sigma 5 against its plain version, flags
    bit-equal: the 512 patches, whole 1024 x 1024 waterfalls, patches with
    NaNs, negative real input, and the cases that stress its radix select:
@@ -138,7 +144,11 @@ TF32_OPS_PER_S = 495e12
 # the fastest the card does float32-accurate products: 3xTF32 on the tensor
 # cores (three TF32 products each, as K6b and K7 do), or the scalar rate
 F32_PRODUCT_OPS_PER_S = max(SCALAR_OPS_PER_S, TF32_OPS_PER_S / 3)
-K4_OPS_PER_PIXEL = 40  # |z|, log10, gradient, min/max, window, atan2, affine
+# Operations of K4's function a pixel: the exact |z| (~25), log10 (~20),
+# atan2 (~40), one gradient (~10), its min/max, the window and the affines
+# (~20). A count of 40 left out the work inside log10 and atan2, as
+# PLANE_OPS_PER_PIXEL's 60 did. The bound is by bytes at either count.
+K4_OPS_PER_PIXEL = 115
 # A 3x3 conv's bound counts the products of the fewest-multiplication exact
 # algorithm a float32 library runs, not the direct ones: Winograd's minimal
 # filtering F(m x m, 3 x 3) takes (m + 2)^2 products for an m x m tile of
@@ -218,10 +228,11 @@ def hmma_expected(mangled):
 
 def kernel_report(lib, nvcc):
     """Print registers, spills and shared memory of the conv kernels, K5's
-    and K1's and K2's from nvcc.log, and the tensor-core TF32 MMAs in the
-    SASS of each; print how many clusters of 4 CTAs of K1's and K2's kernel
-    fit on the card at 128 x 128 (cudaOccupancyMaxActiveClusters), and
-    fail if none does or if one of its 8 instances is missing;
+    and K1's, K2's and K4's from nvcc.log, and the tensor-core TF32 MMAs in
+    the SASS of each; print how many clusters of 4 CTAs of K1's, K2's and
+    K4's kernel fit on the card at 128 x 128 (cudaOccupancyMaxActiveClusters)
+    and its dynamic shared memory, and fail if none fits for one of them or
+    if one of its 12 instances is missing;
     fail if a 3xTF32 kernel (K6b's conv3x3_dw_kernel, K6a's and K7's
     conv3x3_mma_kernel) holds another count than hmma_expected's, or if
     K6a's four tiles (kChunkSums true) are missing."""
@@ -263,13 +274,16 @@ def kernel_report(lib, nvcc):
     k6a = [r for r in pretty if "conv3x3_mma_kernel" in r and r.split("(")[0].endswith("true>")]
     require(len(k6a) == 4, f"K6a's tensor-core tiles: {len(k6a)} of 4 compiled")
     extract = [r for r in names if "cluster_extract_kernel" in r]
-    require(len(extract) == 8, f"K1's and K2's kernel: {len(extract)} of 8 instances compiled")
-    fit = (ctypes.c_int * 2)()
-    for gather, name in ((1, "K1"), (0, "K2")):
+    require(len(extract) == 12,
+            f"K1's, K2's and K4's kernel: {len(extract)} of 12 instances compiled")
+    log("  (cluster_extract_kernel<complex, kind: 0 K2, 1 K1, 2 K4, pixels a group>)")
+    fit = (ctypes.c_int * 3)()
+    for kind, name in ((1, "K1"), (0, "K2"), (2, "K4")):
         for is_complex in (1, 0):
-            rc = lib.rfi_channel_planes_occupancy(gather, is_complex, PATCH, PATCH, fit)
+            rc = lib.rfi_channel_planes_occupancy(kind, is_complex, PATCH, PATCH, fit)
             log(f"  {name} ({'complex64' if is_complex else 'float32'}, 128^2): clusters of 4 "
-                f"CTAs on the card at once {fit[1]}, CTAs an SM {fit[0]} (rc {rc})")
+                f"CTAs on the card at once {fit[1]}, CTAs an SM {fit[0]}, dynamic shared "
+                f"{fit[2]} bytes a CTA (rc {rc})")
             require(rc == 0 and fit[1] > 0, f"{name}: no cluster of 4 CTAs fits on the card")
 
 
@@ -289,6 +303,29 @@ def log(msg):
 def require(cond, what):
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def bound(n_bytes, n_ops, ops_per_s=SCALAR_OPS_PER_S):
+    """The least milliseconds the card takes to move ``n_bytes`` and do
+    ``n_ops`` at ``ops_per_s``, and which of the two bounds it."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S
+    by_ops = n_ops / ops_per_s
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def extract_err(got, want, what):
+    """Max |kernel - plain| over the tensors of ``got`` and ``want`` where
+    the plain version is not NaN; fails on another shape, or on NaN or inf
+    where the plain version has no NaN."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        require(a.shape == b.shape, f"{what}: shape {tuple(a.shape)}, plain {tuple(b.shape)}")
+        nan = torch.isnan(b)
+        require(torch.equal(torch.isnan(a), nan) and bool(torch.isfinite(a[~nan]).all()),
+                f"{what}: NaN or inf where the plain version has none")
+        if bool((~nan).any()):
+            worst = max(worst, float((a[~nan] - b[~nan]).abs().max()))
+    return worst
 
 
 def make_waterfalls(rng):
@@ -465,30 +502,43 @@ def main():
     t = time.perf_counter()
     g = torch.Generator(device="cpu").manual_seed(SEED)
     real = (3.0 * torch.randn((16, PATCH, PATCH), generator=g)).to(dev)
+    g4 = torch.Generator(device="cpu").manual_seed(SEED + 4)  # K4's hard cases
+    k4_nan = patches[:64].clone()
+    k4_nan[(torch.rand(k4_nan.shape, generator=g4) < 0.01).to(dev)] = complex(float("nan"), 0.0)
+    k4_nan[5] = complex(float("nan"), 0.0)  # a patch of NaN only
+    # a contiguous view one complex64 element (8 bytes) into a larger buffer
+    shifted = torch.empty(37 * PATCH * PATCH + 1, dtype=torch.complex64, device=dev)
+    shifted = shifted[1:].view(37, PATCH, PATCH)
+    shifted.copy_(patches[100:137])
+    require(shifted.is_contiguous() and shifted.data_ptr() % 16 == 8,
+            "K4: the misaligned case is not 8 bytes off 16-byte alignment")
     cases = {
         "512x128^2": patches,
         "odd N=37": patches[100:137].contiguous(),
         "constant": torch.full((3, PATCH, PATCH), 2 + 1j, dtype=torch.complex64,
                                device=dev),
         "real f32": real,
+        "NaN pixels": k4_nan,
+        "3x5": patches[:16, :3, :5].contiguous(),
+        "5x7": patches[:16, :5, :7].contiguous(),
+        "33x128": patches[:16, :33].contiguous(),
+        "128x127": patches[:16, :, :127].contiguous(),
+        "8 B off 16 B": shifted,
     }
     k4_err = {}
     for name, x in cases.items():
         got, want = fused_extract_channels(x), fused_extract_channels_plain(x)
         torch.cuda.synchronize()
-        require(got.shape == want.shape and bool(torch.isfinite(got).all()),
-                f"K4 {name}: shape or non-finite output")
-        k4_err[name] = float((got - want).abs().max())
+        k4_err[name] = extract_err((got,), (want,), f"K4 {name}")
     log("K4 max|kernel-plain|: " + ", ".join(
         f"{k} {v:.2e}" for k, v in k4_err.items()) + f" (tol {K4_TOL:g})")
     require(max(k4_err.values()) <= K4_TOL, "K4 disagrees with its plain version")
     k4_ms = cuda_ms(lambda: fused_extract_channels(patches))
     k4_plain_ms = cuda_ms(lambda: fused_extract_channels_plain(patches))
     px = patches.numel()
-    k4_bytes = px * (8 + 12)
-    k4_bound = max(k4_bytes / HBM_BYTES_PER_S, px * K4_OPS_PER_PIXEL / SCALAR_OPS_PER_S)
+    k4_bound, k4_bound_by = bound(px * (8 + 12), px * K4_OPS_PER_PIXEL)
     log(f"K4 at (512,128,128) c64: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, "
-        f"bound {k4_bound * 1e3:.4f} ms (bytes)")
+        f"bound {k4_bound:.4f} ms ({k4_bound_by}), {k4_ms / k4_bound:.1f}x the bound")
     phases["K4"] = time.perf_counter() - t
 
     # -- K5 -----------------------------------------------------------------
@@ -617,19 +667,6 @@ def main():
               "33x128": base[:16, :33], "128x127": base[:16, :, :127]}
     ragged = {k: v.contiguous() for k, v in ragged.items()}
 
-    def extract_err(got, want, what):
-        """Max |kernel - plain| where the plain version is not NaN; fails
-        on another shape, or on NaN or inf where the plain version has no NaN."""
-        worst = 0.0
-        for a, b in zip(got, want):
-            require(a.shape == b.shape, f"{what}: shape {tuple(a.shape)}, plain {tuple(b.shape)}")
-            nan = torch.isnan(b)
-            require(torch.equal(torch.isnan(a), nan) and bool(torch.isfinite(a[~nan]).all()),
-                    f"{what}: NaN or inf where the plain version has none")
-            if bool((~nan).any()):
-                worst = max(worst, float((a[~nan] - b[~nan]).abs().max()))
-        return worst
-
     k2_err = {}
     for name, x in {f"M={m_base}": base, "constant": const, "real": real_base,
                     "NaN pixels": nan_base, **ragged}.items():
@@ -674,11 +711,6 @@ def main():
     require(max(k2_err.values()) <= EXTRACT_TOL, "K2 disagrees with its plain version")
     require(max(k1_err.values()) <= EXTRACT_TOL, "K1 disagrees with its plain version")
     require(not any(k3_diff.values()), "K3 is not bit-equal to its plain version")
-
-    def bound(n_bytes, n_ops, ops_per_s=SCALAR_OPS_PER_S):
-        by_bytes = n_bytes / HBM_BYTES_PER_S
-        by_ops = n_ops / ops_per_s
-        return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
 
     static_kernels = {
         "K2": (lambda: ops.fused_extract_channel_planes(base),
@@ -1296,11 +1328,11 @@ def main():
              "library_ms": None})
     kernels = static_json + [
         {"name": "fused_extract_channels", "route": "cuda",
-         "source": "rfi_toolbox_tpu_torch/ops/csrc/fused_channels.cu",
+         "source": "rfi_toolbox_tpu_torch/ops/csrc/channel_planes.cu",
          "replaces": "rfi_toolbox_tpu/ops/fused_channels.py:455",
          "launches": k4_launches, "max_abs_err": max(k4_err.values()),
-         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound * 1e3,
-         "bound_by": "bytes", "library_ms": None},
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
+         "bound_by": k4_bound_by, "library_ms": None},
         {"name": "mad_flag_patches", "route": "cuda",
          "source": "rfi_toolbox_tpu_torch/ops/csrc/mad_flags.cu",
          "replaces": "rfi_toolbox_tpu/ops/mad_flags.py:132",

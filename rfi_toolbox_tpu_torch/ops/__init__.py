@@ -7,7 +7,7 @@ launches its kernel for a CUDA tensor; the kernels are built by
 - K1 ``fused_gather_extract`` (csrc/channel_planes.cu)
 - K2 ``fused_extract_channel_planes`` (csrc/channel_planes.cu)
 - K3 ``fused_plane_gather_transform`` (csrc/plane_gather.cu)
-- K4 ``fused_extract_channels`` (csrc/fused_channels.cu)
+- K4 ``fused_extract_channels`` (csrc/channel_planes.cu)
 - K5 ``mad_flag_patches`` (csrc/mad_flags.cu)
 - K6a ``conv3x3_call`` (csrc/conv3x3.cu, csrc/conv3x3_mma.cuh), behind
   the differentiable ``conv3x3_bias_relu`` and ``conv3x3``, on the tensor

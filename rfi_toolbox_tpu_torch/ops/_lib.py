@@ -45,7 +45,8 @@ _SIGNATURES = {
     "rfi_fused_extract_channel_planes": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # in, base_idx, pidx, grad, amp, phase, m, k, h, w, is_complex, stream
     "rfi_fused_gather_extract": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # gather, is_complex, h, w, out: CTAs an SM and clusters on the card
+    # kind (0 K2, 1 K1, 2 K4), is_complex, h, w, out: CTAs an SM, clusters
+    # on the card, dynamic shared memory bytes a CTA
     "rfi_channel_planes_occupancy": (_I, _I, _I, _I, _PI),
     # grad3, log_amp, phase, base_idx, pidx, variant, grad_out, amp_out,
     # phase_out, m, k, h, stream

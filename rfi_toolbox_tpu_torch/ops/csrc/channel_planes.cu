@@ -1,5 +1,6 @@
-// K2: variant-aware channel planes of base patches, and K1: the same
-// extraction fused with the gather of the static selection.
+// K2: variant-aware channel planes of base patches, K1: the same
+// extraction fused with the gather of the static selection, and K4: the
+// 3-channel extraction of patches into (N, H, W, 3), one kernel template.
 //
 // K2 replaces rfi_toolbox_tpu/ops/fused_channels.py
 // (fused_extract_channel_planes, body _planes_kernel): (M, H, W) complex64
@@ -15,18 +16,28 @@
 // flip/transpose). Its plain version is K2's plain version followed by a
 // gather.
 //
-// Both follow their plain version on real input too, as K4 does: the
-// log-amplitude plane is min-max normalised per patch and the phase plane
-// is zero (the JAX package calls its TPU kernels on complex input only).
+// K4 replaces fused_extract_channels (body _kernel): (N, H, W) complex64 or
+// float32 -> (N, H, W, 3) float32, [gradient, log-amplitude, phase]
+// interleaved and ImageNet-normalised. Its function is part of K2's: the
+// gradient is K2's fwd/fwd plane (grad3[0]), the other two are K2's
+// amplitude and phase planes. Its plain version is preprocess/pipeline.py:
+// imagenet_normalize(extract_channels(x)).
+//
+// All three follow their plain version on real input too: the
+// log-amplitude is min-max normalised per patch and the phase is zero (the
+// JAX package calls its TPU kernels on complex input only).
 //
 // Bound on the H100: bytes. K2 reads 8 B (4 B real) and writes 20 B per
 // base pixel; K1 reads each selected base patch's 8 B (4 B) per pixel once
-// and writes 12 B per output pixel. The arithmetic (an exact magnitude, a
-// log10, an atan2, three gradients, the affines) is some 150 instructions
-// a base pixel, of the order of the byte bound: it was 40-45% of the time
-// of the one-block-per-patch (K2) and one-block-per-output (K1) kernels
-// this design replaces. So it is done once per base pixel, with no
-// division the 2e-5 gate does not need.
+// and writes 12 B per output pixel; K4 reads 8 B (4 B) and writes 12 B per
+// pixel. The arithmetic (an exact magnitude, a log10, an atan2, three
+// gradients, the affines) is some 150 instructions a base pixel (K4: one
+// gradient, some 115), of the order of the byte bound: it was 40-45% of
+// the time of the one-block-per-patch (K2) and one-block-per-output (K1)
+// kernels this design replaces and 31% of the one-block-per-patch K4's,
+// whose stores of 4 B at a 12 B stride took another 30%. So the
+// arithmetic is done once per base pixel, with no division the 2e-5 gate
+// does not need, and every store is 16 B where the shape allows.
 //
 // Design. One cluster of 4 CTAs per base patch, launched with
 // cudaLaunchKernelEx; CTA r of the cluster owns rows [r R, (r + 1) R) with
@@ -37,7 +48,9 @@
 //   1. log10|z| of the CTA's rows into its shared tile; complex input
 //      writes the amplitude (fixed window) and phase planes straight out,
 //      real input the zero phase plane (its amplitude waits for the
-//      patch's min and max).
+//      patch's min and max). K4 writes nothing yet: it keeps the phase of
+//      complex input in a second shared tile (atan2 of the loads in
+//      registers, no second read of the input).
 //   2. cluster barrier; the row above and the row below the CTA's rows
 //      (halo) are read from the neighbouring CTAs' tiles through
 //      distributed shared memory. Each gradient plane's min and max over
@@ -46,8 +59,11 @@
 //      pushed into a slot of every CTA of the cluster.
 //   3. cluster barrier; each CTA reduces the 4 x 8 warps' slots, then
 //      recomputes the gradients from its tile and writes them normalised
-//      (and real input's amplitude plane). No CTA touches another's shared
-//      memory after the second barrier, so none waits before it exits.
+//      (and real input's amplitude plane). K4 reduces and recomputes the
+//      fwd/fwd gradient only, and writes a group's three channels as 3 kPx
+//      interleaved floats (three 16-byte stores for 4 pixels). No CTA
+//      touches another's shared memory after the second barrier, so none
+//      waits before it exits.
 // K1 launches one cluster per base patch (M clusters); each CTA finds the
 // outputs that select its base patch by a scan of base_idx, in order,
 // while its loads are in flight (K indices a CTA, from L2), computes the
@@ -86,6 +102,10 @@ constexpr int kListCap = 64;  // K1: a base patch's outputs listed at a time
 constexpr int kScan = 8;  // K1: base indices a thread loads at a time
 // min and max of each gradient plane and of log10|x|: slots 2v, 2v + 1
 constexpr int kValues = 8;
+// the kernel's three functions (its kKind)
+constexpr int kK2 = 0;  // every base patch's five planes
+constexpr int kK1 = 1;  // the selected outputs' three planes
+constexpr int kK4 = 2;  // every patch's three channels, (m, h, w, 3)
 
 // The affines of the plain version with each division by a constant
 // folded into a multiplication: x * scale + shift.
@@ -143,6 +163,23 @@ __device__ __forceinline__ void store_out(float* p, const float (&v)[kPx]) {
     __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
   } else {
     __stcs(p, v[0]);
+  }
+}
+
+// K4's store of kPx pixels' three channels, interleaved: 3 kPx floats.
+template <int kPx>
+__device__ __forceinline__ void store_channels(float* p, const float (&g)[kPx],
+                                               const float (&a)[kPx],
+                                               const float (&ph)[kPx]) {
+  if constexpr (kPx == 4) {
+    float4* o = reinterpret_cast<float4*>(p);
+    __stcs(o, make_float4(g[0], a[0], ph[0], g[1]));
+    __stcs(o + 1, make_float4(a[1], ph[1], g[2], a[2]));
+    __stcs(o + 2, make_float4(ph[2], g[3], a[3], ph[3]));
+  } else {
+    __stcs(p, g[0]);
+    __stcs(p + 1, a[0]);
+    __stcs(p + 2, ph[0]);
   }
 }
 
@@ -228,16 +265,17 @@ __device__ __forceinline__ void gradients(const float* tile, int lr, int c, int 
   }
 }
 
-// kGather false (K2): base patch b's planes into grad (= grad3, (3, m, h,
-// w)), amp and phase ((m, h, w)). kGather true (K1): the planes of the
-// outputs that select b into grad, amp and phase ((k, h, w)). kPx: pixels
-// a group.
-template <bool kComplex, bool kGather, int kPx>
+// kK2: base patch b's planes into grad (= grad3, (3, m, h, w)), amp and
+// phase ((m, h, w)). kK1: the planes of the outputs that select b into
+// grad, amp and phase ((k, h, w)). kK4: patch b's three channels into
+// grad (= out, (m, h, w, 3)); amp and phase unused. kPx: pixels a group.
+template <bool kComplex, int kKind, int kPx>
 __global__ void __launch_bounds__(kThreads, 4)
 cluster_extract_kernel(const float* __restrict__ in, const int* __restrict__ base_idx,
                        const int* __restrict__ pidx, float* __restrict__ grad,
                        float* __restrict__ amp, float* __restrict__ phase, int m,
                        int k, int h, int w) {
+  constexpr bool kGather = kKind == kK1;
   extern __shared__ float4 smem4[];
   float* tile = reinterpret_cast<float*>(smem4);  // (rows + 2) x w
   __shared__ float slots[kValues][kCluster * kWarps];
@@ -253,6 +291,9 @@ cluster_extract_kernel(const float* __restrict__ in, const int* __restrict__ bas
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   const int rows = (h + kCluster - 1) / kCluster;
+  // K4, complex input: the phase channel of the CTA's rows (rows x w),
+  // kept from pass 1, where the input is in registers, to pass 3's stores
+  float* stash = tile + (rows + 2) * w;
   const int r0 = min(h, rank * rows);
   const int nrows = min(h, r0 + rows) - r0;
   const size_t hw = static_cast<size_t>(h) * w;
@@ -318,7 +359,7 @@ cluster_extract_kernel(const float* __restrict__ in, const int* __restrict__ bas
     return seen;
   };
   int n_out = 1, n_list = 1;
-  unsigned mask = 7u;
+  unsigned mask = kKind == kK4 ? 1u : 7u;  // K4: the fwd/fwd gradient only
   if constexpr (kGather) {
     n_out = collect(0);
     if (n_out == 0) return;  // the whole cluster: no output selects b
@@ -351,7 +392,7 @@ cluster_extract_kernel(const float* __restrict__ in, const int* __restrict__ bas
       for (int i = 0; i < kPx; ++i) {
         if constexpr (kComplex) {
           la[i] = log_amplitude(x[u].z[i]);
-          a[i] = amp_value(la[i]);
+          if constexpr (kKind != kK4) a[i] = amp_value(la[i]);
           p[i] = phase_value(x[u].z[i]);
         } else {
           la[i] = log10f(__fadd_rn(fabsf(x[u].x[i]), 1e-10f));
@@ -361,9 +402,13 @@ cluster_extract_kernel(const float* __restrict__ in, const int* __restrict__ bas
         }
       }
       store<kPx>(tile + w + q, la);
-      for (int i = 0; i < n_list; ++i) {
-        if constexpr (kComplex) store_out<kPx>(amp + at(i, q), a);
-        store_out<kPx>(phase + at(i, q), p);
+      if constexpr (kKind == kK4) {
+        if constexpr (kComplex) store<kPx>(stash + q, p);
+      } else {
+        for (int i = 0; i < n_list; ++i) {
+          if constexpr (kComplex) store_out<kPx>(amp + at(i, q), a);
+          store_out<kPx>(phase + at(i, q), p);
+        }
       }
     }
   }
@@ -470,6 +515,9 @@ cluster_extract_kernel(const float* __restrict__ in, const int* __restrict__ bas
       if constexpr (!kComplex) {
 #pragma unroll
         for (int i = 0; i < kPx; ++i) a[i] = amp_norm(la[i]);
+      } else if constexpr (kKind == kK4) {
+#pragma unroll
+        for (int i = 0; i < kPx; ++i) a[i] = amp_value(la[i]);
       }
       if constexpr (kGather) {
         if (rest) {
@@ -494,6 +542,14 @@ cluster_extract_kernel(const float* __restrict__ in, const int* __restrict__ bas
           if (!kComplex || rest) store_out<kPx>(amp + at(i, q), a);
           if (rest) store_out<kPx>(phase + at(i, q), p);
         }
+      } else if constexpr (kKind == kK4) {
+        if constexpr (kComplex) {
+          load_row<kPx>(stash + q, p);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kPx; ++i) p[i] = kPhaseZero;
+        }
+        store_channels<kPx>(grad + 3 * at(0, q), gr[0], a, p);
       } else {
 #pragma unroll
         for (int v = 0; v < 3; ++v) store_out<kPx>(grad + v * plane + at(0, q), gr[v]);
@@ -503,13 +559,14 @@ cluster_extract_kernel(const float* __restrict__ in, const int* __restrict__ bas
   }
 }
 
-template <bool kComplex, bool kGather, int kPx>
+template <bool kComplex, int kKind, int kPx>
 cudaError_t launch(const float* in, const int* base_idx, const int* pidx, float* grad,
                    float* amp, float* phase, int m, int k, int h, int w,
                    cudaStream_t stream, int* occupancy) {
-  auto kernel = cluster_extract_kernel<kComplex, kGather, kPx>;
+  auto kernel = cluster_extract_kernel<kComplex, kKind, kPx>;
   const int rows = (h + kCluster - 1) / kCluster;
-  const size_t smem = static_cast<size_t>(rows + 2) * w * sizeof(float);
+  const int stash_rows = kKind == kK4 && kComplex ? rows : 0;
+  const size_t smem = static_cast<size_t>(rows + 2 + stash_rows) * w * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -525,7 +582,8 @@ cudaError_t launch(const float* in, const int* base_idx, const int* pidx, float*
   config.stream = stream;
   config.attrs = attr;
   config.numAttrs = 1;
-  if (occupancy) {  // CTAs resident on one SM, clusters resident on the card
+  if (occupancy) {  // CTAs resident on one SM, clusters on the card, dynamic smem
+    occupancy[2] = static_cast<int>(smem);
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy[0], kernel,
                                                         kThreads, smem);
     if (err != cudaSuccess) return err;
@@ -537,11 +595,11 @@ cudaError_t launch(const float* in, const int* base_idx, const int* pidx, float*
   return cudaGetLastError();
 }
 
-template <bool kGather>
+template <int kKind>
 cudaError_t dispatch(const void* in, const void* base_idx, const void* pidx, void* grad,
                      void* amp, void* phase, int m, int k, int h, int w, int is_complex,
                      void* stream, int* occupancy = nullptr) {
-  if (m <= 0 || (kGather && k <= 0) || h <= 0 || w <= 0 || h * w > kMaxPixels) {
+  if (m <= 0 || (kKind == kK1 && k <= 0) || h <= 0 || w <= 0 || h * w > kMaxPixels) {
     return cudaErrorInvalidValue;
   }
   const uintptr_t bits = reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(grad) |
@@ -554,9 +612,9 @@ cudaError_t dispatch(const void* in, const void* base_idx, const void* pidx, voi
                          w, static_cast<cudaStream_t>(stream), occupancy);
   };
   if (is_complex) {
-    return vec ? args(launch<true, kGather, 4>) : args(launch<true, kGather, 1>);
+    return vec ? args(launch<true, kKind, 4>) : args(launch<true, kKind, 1>);
   }
-  return vec ? args(launch<false, kGather, 4>) : args(launch<false, kGather, 1>);
+  return vec ? args(launch<false, kKind, 4>) : args(launch<false, kKind, 1>);
 }
 
 }  // namespace
@@ -568,8 +626,8 @@ extern "C" int rfi_fused_extract_channel_planes(const void* in, void* grad3,
                                                 void* amp, void* phase, int n,
                                                 int h, int w, int is_complex,
                                                 void* stream) {
-  return static_cast<int>(dispatch<false>(in, nullptr, nullptr, grad3, amp, phase, n, 0,
-                                          h, w, is_complex, stream));
+  return static_cast<int>(dispatch<kK2>(in, nullptr, nullptr, grad3, amp, phase, n, 0,
+                                        h, w, is_complex, stream));
 }
 
 // in: (m, h, w) complex64 (is_complex != 0) or float32 base patches;
@@ -580,19 +638,30 @@ extern "C" int rfi_fused_gather_extract(const void* in, const void* base_idx,
                                         const void* pidx, void* grad, void* amp,
                                         void* phase, int m, int k, int h, int w,
                                         int is_complex, void* stream) {
-  return static_cast<int>(dispatch<true>(in, base_idx, pidx, grad, amp, phase, m, k, h, w,
-                                         is_complex, stream));
+  return static_cast<int>(dispatch<kK1>(in, base_idx, pidx, grad, amp, phase, m, k, h, w,
+                                        is_complex, stream));
 }
 
-// The launch K2 (gather 0) or K1 (gather 1) makes for 16-byte-aligned
-// (512, h, w) input: out[0] CTAs resident on one SM, out[1] clusters of 4
-// resident on the card (cudaOccupancyMaxActiveClusters). Launches nothing.
-extern "C" int rfi_channel_planes_occupancy(int gather, int is_complex, int h, int w,
+// in: (n, h, w) complex64 (is_complex != 0) or float32; out: (n, h, w, 3)
+// float32. Launches on `stream` and returns cudaGetLastError().
+extern "C" int rfi_fused_extract_channels(const void* in, void* out, int n, int h,
+                                          int w, int is_complex, void* stream) {
+  return static_cast<int>(dispatch<kK4>(in, nullptr, nullptr, out, nullptr, nullptr, n, 0,
+                                        h, w, is_complex, stream));
+}
+
+// The launch K2 (kind 0), K1 (kind 1) or K4 (kind 2) makes for
+// 16-byte-aligned (512, h, w) input: out[0] CTAs resident on one SM, out[1]
+// clusters of 4 resident on the card (cudaOccupancyMaxActiveClusters),
+// out[2] bytes of dynamic shared memory a CTA. Launches nothing.
+extern "C" int rfi_channel_planes_occupancy(int kind, int is_complex, int h, int w,
                                             int* out) {
-  const int m = 512;
-  return static_cast<int>(
-      gather ? dispatch<true>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, m, 1,
-                              h, w, is_complex, nullptr, out)
-             : dispatch<false>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, m, 0,
-                               h, w, is_complex, nullptr, out));
+  const auto query = [&](auto dispatch_kind) {
+    return static_cast<int>(dispatch_kind(nullptr, nullptr, nullptr, nullptr, nullptr,
+                                          nullptr, 512, 1, h, w, is_complex, nullptr, out));
+  };
+  if (kind == kK2) return query(dispatch<kK2>);
+  if (kind == kK1) return query(dispatch<kK1>);
+  if (kind == kK4) return query(dispatch<kK4>);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -45,24 +45,13 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
-  return v;
-}
-
 // Constants and steps of the channel extraction, shared by K1, K2 and K4
 // (preprocess/pipeline.py: extract_channels, extract_channel_planes).
 constexpr float kLogMin = -3.0f;
 constexpr float kLogSpan = 7.0f;  // LOG_MAX - LOG_MIN
-constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr float kMean0 = 0.485f, kMean1 = 0.456f, kMean2 = 0.406f;
 constexpr float kStd0 = 0.229f, kStd1 = 0.224f, kStd2 = 0.225f;
-
-// (x - lo) / span, or 0 where span is not positive (constant patch).
-__device__ __forceinline__ float minmax(float x, float lo, float span) {
-  return span > 0.0f ? __fdiv_rn(__fsub_rn(x, lo), span) : 0.0f;
-}
 
 // clip to [0, 1], NaN kept
 __device__ __forceinline__ float clip01(float x) {

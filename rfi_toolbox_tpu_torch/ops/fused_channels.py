@@ -2,7 +2,7 @@
 
 Counterparts of ``rfi_toolbox_tpu/ops/fused_channels.py``:
 
-- K4 :func:`fused_extract_channels` (``csrc/fused_channels.cu``): the
+- K4 :func:`fused_extract_channels` (``csrc/channel_planes.cu``): the
   3-channel extraction of gathered patches;
 - K2 :func:`fused_extract_channel_planes` (``csrc/channel_planes.cu``):
   the five variant-aware planes of base patches;
@@ -13,10 +13,10 @@ Counterparts of ``rfi_toolbox_tpu/ops/fused_channels.py``:
 
 Each wrapper runs its plain PyTorch version (``*_plain``) for a tensor on
 the CPU, and for a CUDA tensor launches its kernel or raises; nothing
-falls back. ``*_model`` (K2, K1) is a torch model of the kernel's passes
-(the 4-CTA row split with its halo rows, the min and max reduced across
-the parts, the reciprocal-and-FMA arithmetic, K1's outputs grouped by
-base patch), for the tests; no path runs it. ``<wrapper>.launches``
+falls back. ``*_model`` (K2, K1, K4) is a torch model of the kernel's
+passes (the 4-CTA row split with its halo rows, the min and max reduced
+across the parts, the reciprocal-and-FMA arithmetic, K1's outputs grouped
+by base patch, K4's interleaved channels), for the tests; no path runs it. ``<wrapper>.launches``
 counts each kernel's launches. Index ranges are checked on the card without a host sync
 (``torch._assert_async``): a bad index stops the process at its next
 synchronisation.
@@ -37,13 +37,14 @@ __all__ = [
     "fused_gather_extract_plain",
     "fused_plane_gather_transform",
     "fused_plane_gather_transform_plain",
+    "fused_extract_channels_model",
     "fused_extract_channel_planes_model",
     "fused_gather_extract_model",
     "MAX_PATCH_PIXELS",
 ]
 
 MAX_PATCH_PIXELS = 128 * 128  # kMaxPixels / kMaxSide^2 in csrc/
-CLUSTER = 4  # CTAs that split a patch's rows in K1 and K2 (csrc/channel_planes.cu)
+CLUSTER = 4  # CTAs that split a patch's rows in K1, K2, K4 (csrc/channel_planes.cu)
 LIST_CAP = 64  # K1's outputs of one base patch listed at a time (kListCap in csrc/)
 
 
@@ -297,6 +298,14 @@ def _cluster_planes(patches, planes=(0, 1, 2)):
                     torch.stack(part_hi).amax(dim=0), _STD[1], _SHIFT[1])
         phase = torch.full_like(la, float(-_MEAN[2] / _STD[2]))
     return out, amp, phase
+
+
+def fused_extract_channels_model(patches):
+    """Torch model of K4's passes, on any device: K2's with the fwd/fwd
+    gradient plane only, the channels interleaved as (N, H, W, 3); the
+    same outputs as :func:`fused_extract_channels`."""
+    grads, amp, phase = _cluster_planes(patches, planes=(0,))
+    return torch.stack([grads[0], amp, phase], dim=-1)
 
 
 def fused_extract_channel_planes_model(patches):

@@ -1,11 +1,13 @@
-"""Port parity: torch models of the passes of K2 and K1 on the card
-(``fused_extract_channel_planes_model`` and ``fused_gather_extract_model``
-in ``rfi_toolbox_tpu_torch/ops/fused_channels.py``: each patch's rows split
+"""Port parity: torch models of the passes of K2, K1 and K4 on the card
+(``fused_extract_channel_planes_model``, ``fused_gather_extract_model`` and
+``fused_extract_channels_model`` in
+``rfi_toolbox_tpu_torch/ops/fused_channels.py``: each patch's rows split
 across a cluster of 4 CTAs with halo rows from the neighbours, each plane's
 min and max reduced across the 4 parts, divisions folded into reciprocals
-and FMAs, K1's outputs found per base patch by a scan of ``base_idx``)
-against the plain versions and the JAX package, on the CPU; and the float32
-square root that ``magnitude`` takes on the card.
+and FMAs, K1's outputs found per base patch by a scan of ``base_idx``, K4's
+channels interleaved as (N, H, W, 3)) against the plain versions and the
+JAX package, on the CPU; and the float32 square root that ``magnitude``
+takes on the card.
 
 The JAX kernels run in Pallas interpret mode, as tests/test_ops.py runs
 them, on complex input without NaN (they take no min over NaN and treat
@@ -54,6 +56,7 @@ CASES = {
     "5x7": (lambda rng: _complex(rng, 5, 5, 7), "kernel"),
     "33x128": (lambda rng: _complex(rng, 3, 33, 128), "kernel"),
     "128x128": (lambda rng: _complex(rng, 2, 128, 128), "kernel"),
+    "128x127": (lambda rng: _complex(rng, 2, 128, 127), "kernel"),
 }
 
 
@@ -83,6 +86,23 @@ def test_channel_planes_model(case):
     if reference:
         for g, j in zip(got, _jax_planes(x, reference)):
             _close(g, j)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_channels_model(case):
+    """K4's model against its plain version, and against the Pallas K4
+    (interpret mode) on complex input or the JAX reference pipeline on
+    real input and NaN pixels (``CASES``)."""
+    make, reference = CASES[case]
+    x = make(np.random.default_rng(14))
+    got = F.fused_extract_channels_model(_t(x))
+    plain = F.fused_extract_channels_plain(_t(x))
+    assert got.shape == plain.shape == (*x.shape, 3)
+    _close(got, plain)
+    if reference == "kernel":
+        _close(got, JK.fused_extract_channels(jnp.asarray(x), interpret=True))
+    elif reference == "pipeline":
+        _close(got, JP.imagenet_normalize(JP.extract_channels(jnp.asarray(x))))
 
 
 def _indices(rng, pattern, m):

@@ -65,11 +65,13 @@ def test_kernel_sources_are_plain_c_interface():
     from rfi_toolbox_tpu_torch.ops import _lib
 
     sources = sorted((PORT / "ops" / "csrc").glob("*.cu*"))
-    assert {p.name for p in sources} >= {"fused_channels.cu", "mad_flags.cu",
-                                         "channel_planes.cu", "plane_gather.cu",
-                                         "conv3x3.cu", "conv3x3_mma.cuh",
-                                         "mma_tf32.cuh", "double_conv_gn.cu"}
+    assert {p.name for p in sources} >= {"mad_flags.cu", "channel_planes.cu",
+                                         "plane_gather.cu", "conv3x3.cu",
+                                         "conv3x3_mma.cuh", "mma_tf32.cuh",
+                                         "double_conv_gn.cu"}
     assert not (PORT / "ops" / "csrc" / "conv3x3_tile.cuh").exists()  # K6a's FMA tile
+    # K4 is an instance of K1's and K2's cluster kernel
+    assert not (PORT / "ops" / "csrc" / "fused_channels.cu").exists()
     text = "\n".join(p.read_text() for p in sources)
     assert not re.search(r"#include\s*[<\"](torch|ATen|c10|pybind11)", text)
     for name in _lib._SIGNATURES:
