@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-It drives the port's flagging service, its training main path and the
-train -> export -> serve loop (``rfi_toolbox_tpu_torch``) on the card and
-fails (non-zero exit) if any phase fails:
+It drives the port's flagging service, its training main path, the
+train -> export -> serve loop, the file path (generator -> batch files ->
+streamed training) and the raw-patch path (``rfi_toolbox_tpu_torch``) on
+the card and fails (non-zero exit) if any phase fails:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: one nvcc per source, all started together, and one link build
@@ -17,7 +18,8 @@ fails (non-zero exit) if any phase fails:
    body; the same report of K1's, K2's and K4's kernel (one template,
    12 instances), its dynamic shared memory and its cluster launch
    (clusters of 4 CTAs that fit on the card, CTAs an SM), for each of
-   the three;
+   the three; the same report of the strip kernel (K4 and K2 above
+   128 x 128) and of K3's tiled kernel;
 3. K4 (fused_extract_channels) against its plain PyTorch version on the
    card: 512 complex64 128x128 patches cut from 8 waterfalls of 1024 x
    1024, an odd N, a constant patch, real float32 input, NaN pixels (and
@@ -25,7 +27,12 @@ fails (non-zero exit) if any phase fails:
    x 127) and input 8 bytes off 16-byte alignment (the last two take
    1-pixel groups): max abs diff <= 2e-5, NaN where the plain version has
    NaN and no inf (``extract_err``); time per call (CUDA events, see
-   ``cuda_ms``);
+   ``cuda_ms``); then the strip kernel that takes patches above 128 x 128
+   on the same kinds of input: 32 x 256^2 and the 8 whole 1024^2
+   waterfalls, complex and real, NaN pixels and a patch of NaN only, a
+   constant patch, ragged 129 x 130 and 1000 x 1024, input 8 bytes off
+   16-byte alignment; its time and bound at (32, 256, 256) (phase 15's
+   step) and (128, 1024, 1024) (phase 14's generation batch);
 4. K5 (mad_flag_patches) at sigma 5 against its plain version, flags
    bit-equal: the 512 patches, whole 1024 x 1024 waterfalls, patches with
    NaNs, negative real input, and the cases that stress its radix select:
@@ -36,7 +43,9 @@ fails (non-zero exit) if any phase fails:
    UNet16 snapshots (BatchNorm, GroupNorm) at full width on the 8 x 1024
    x 1024 waterfalls: IoU against the known RFI mask (> 0.9), K4
    launches, waterfalls/s; the card's logits against the same predictor on the CPU
-   (TF32 off) on 8 patches;
+   (TF32 off) on 8 patches; and the BatchNorm snapshot at patch_size=256
+   (K4's strip kernel), whose masks equal the same predictor's on the
+   plain extraction on >= 99.9% of the pixels;
 6. the MAD path, flag_waterfalls(method="mad", sigma=5): IoU (> 0.5), K5
    launches, waterfalls/s;
 7. K2 (fused_extract_channel_planes), K1 (fused_gather_extract) and K3
@@ -50,13 +59,19 @@ fails (non-zero exit) if any phase fails:
    patches no output selects and one base patch selected 150 times
    (more than one list of its outputs): K1 and K2 within 2e-5 (NaN where
    the plain version has NaN), shapes equal, K3 bit-equal; time per call
-   (K1's scan for its outputs inside the call) and bound;
+   (K1's scan for its outputs inside the call) and bound; then the same
+   above 128 x 128 (K2 the strip kernel, K1 the strip K2 and K3's gather,
+   K3 32 x 32 squares): 32 x 256^2 and 8 x 1024^2, real, NaN, constant,
+   129 x 130 and 1000 x 1024 (K1, K2), misaligned, and their times at the
+   static selection of patch 256 (M=128 base patches, K=480);
 8. static prep, Preprocessor.create_dataset(static_num_patches=1920), on
    the 'auto' route (K1) and the 'planes' route (K2 + K3), and with MAD
    flags (K5), then on real input (the waterfalls' amplitudes) on both
    routes and on the materialised path (num_patches=1920, K4), each
    against use_kernels=False on the card: the same selection, labels
-   bit-equal, images within 2e-5;
+   bit-equal, images within 2e-5; and the 'auto' (K1) and 'planes' (K2 +
+   K3) routes at patch_size=256 (K=480), on the kernels for larger
+   patches;
 9. the training main path at full width: the port's generator (bench.py's
    event mix) -> static prep (K=1920, default route) -> UNet(32,
    norm="batch") in bfloat16 trained for 15 steps of 128 per iteration;
@@ -95,7 +110,26 @@ fails (non-zero exit) if any phase fails:
     and flag_waterfalls on phase 5's waterfalls, whose flags agree with
     Trainer.predict on >= 99.9% of the pixels; predict(tta=True); a
     checkpoint restored bit-equal, and the next step bit-equal with
-    deterministic algorithms.
+    deterministic algorithms;
+14. the file path at full width: SyntheticDataGenerator on
+    configs/data_generation/synthetic_train_4k.yaml's sections
+    (``TRAIN_4K_CONFIG``: 1024 x 1024, 2 pols, its event counts, bandpass
+    order 8, 4 rotations; 16 samples, one generation batch, and the MAD
+    masks) and synthetic_val_1k.yaml's (``VAL_1K_CONFIG``, 4 samples)
+    under build/chip_smoke/, then Trainer.fit on the streamed
+    ``exact_masks`` directories (UNet32 bf16 BatchNorm, 1 epoch, batch 4):
+    the files and counts against the metadata (128 images of 1024^2 in 2
+    batch files, 32 MAD-mask waterfalls), K4 once and K5 once a generation
+    batch, the MAD masks bit-equal to K5's plain version on the file's
+    magnitudes, at most 3 batch files resident, all 128 samples consumed,
+    finite losses, the validation IoU, the reader; generation and train
+    times and patches/s, and the writer alone on one batch file's arrays
+    from the card (its copy must equal the file);
+15. the raw-patch path: DevicePreprocessor on phase 5's 8 waterfalls and
+    masks at the default patch_size=256, then RawPatchTrainer (UNet32 bf16)
+    for one epoch at batch 32: K4 once a step on (32, 256, 256), finite
+    losses; then ``RAW_WARM_EPOCHS`` warm epochs timed back to back for
+    patches/s.
 
 Waterfalls/s is timed on the host clock over 3 windows of at least
 ``WINDOW_S`` seconds each (calls queued back to back, one synchronize at
@@ -110,7 +144,8 @@ launches, error, times and bound (K6a, K6b and K7 summed over their
 layers; the line before it lists the layers); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Budget: under
 5 minutes with the build. Writes only under build/ (the snapshot and
-checkpoints of phase 13).
+checkpoints of phase 13, phase 14's batch files, some 1.8 GB, deleted at
+the end of each phase).
 """
 
 import copy
@@ -191,6 +226,46 @@ TRAIN_LOSS_RTOL = 1e-4  # the float32 UNet32 step through K6a + K6b vs cuDNN
 GRAD_RTOL = 1e-3  # all parameters, relative L2, against cuDNN's step
 GRAD_F64_FLOOR = 1e-4
 MASK_AGREE = 0.999  # share of pixels two forwards must flag alike
+# Phase 14: configs/data_generation/synthetic_train_4k.yaml and
+# synthetic_val_1k.yaml as dict literals (the card has no PyYAML;
+# tests/test_torch_generator.py holds them to the files), each cut as
+# PHASE14_CUTS says and in nothing else: the widths (1024 x 1024, 2 pols),
+# the event counts, the bandpass (order 8), the 4 rotations and the
+# generation batch of 16 are the published ones
+_EVENTS = {"narrowband_persistent": 20, "broadband_persistent": 5, "frequency_sweep": 1,
+           "narrowband_bursty": 20, "broadband_bursty": 5}
+_SYNTH = {"num_channels": 1024, "num_times": 1024, "noise_mjy": 1.0,
+          "rfi_power_min": 1000.0, "rfi_power_max": 10000.0, "rfi_type_counts": _EVENTS,
+          "enable_bandpass_rolloff": True, "bandpass_polynomial_order": 8,
+          "polarization_correlation": 0.8, "num_polarizations": 2,
+          "generation_batch_size": 16}
+_PROC = {"normalize_before_stretch": False, "normalize_after_stretch": False,
+         "stretch": None, "flag_sigma": 5, "patch_size": 1024}
+_TRAIN_4K = {"synthetic": {**_SYNTH, "num_samples": 4000},
+             "processing": {**_PROC, "enable_augmentation": True, "augmentation_rotations": 4}}
+_VAL_1K = {"synthetic": {**_SYNTH, "num_samples": 1000},
+           "processing": {**_PROC, "enable_augmentation": False, "augmentation_rotations": 1}}
+# 4000 samples -> 16 (one generation batch: 128 images of 1024^2 in 2 batch
+# files), with the MAD masks (K5 on the 32 whole waterfalls); 1000 -> 4
+PHASE14_CUTS = {
+    "TRAIN_4K_CONFIG": {"synthetic": {"num_samples": 16, "generate_mad_masks": True}},
+    "VAL_1K_CONFIG": {"synthetic": {"num_samples": 4}},
+}
+
+
+def cut_config(published, cut):
+    """``published`` with each section's values replaced by ``cut``'s."""
+    return {section: {**values, **cut.get(section, {})} for section, values in published.items()}
+
+
+TRAIN_4K_CONFIG = cut_config(_TRAIN_4K, PHASE14_CUTS["TRAIN_4K_CONFIG"])
+VAL_1K_CONFIG = cut_config(_VAL_1K, PHASE14_CUTS["VAL_1K_CONFIG"])
+FIT_BATCH = 4  # the training CLI's default for --train_batches_dir
+LARGE = 256  # the side of the large patches of phases 3, 5, 7 and 8
+K_LARGE = K_STATIC * PATCH ** 2 // LARGE ** 2  # 480 of 256^2: the pixels of 1920 of 128^2
+FLAG_BATCH_LARGE = 32  # the predictor's fixed batch at 256^2
+RAW_PATCH, RAW_BATCH = 256, 32  # phase 15: create_raw_patches' default, batch 32
+RAW_WARM_EPOCHS = 20  # phase 15: the warm epochs timed back to back
 # Operations of K1's and K2's function a base pixel: the exact |z| (a
 # division, a float64 FMA, a square root: ~25), log10 (~20), atan2 (~40),
 # three gradients (~30), min/max, windows and affines (~35). A count of 60
@@ -232,14 +307,15 @@ def kernel_report(lib, nvcc):
     the SASS of each; print how many clusters of 4 CTAs of K1's, K2's and
     K4's kernel fit on the card at 128 x 128 (cudaOccupancyMaxActiveClusters)
     and its dynamic shared memory, and fail if none fits for one of them or
-    if one of its 12 instances is missing;
+    if one of its 12 instances is missing, or one of the strip kernel's 16
+    (K4 and K2 above 128 x 128) or K3's tiled kernel;
     fail if a 3xTF32 kernel (K6b's conv3x3_dw_kernel, K6a's and K7's
     conv3x3_mma_kernel) holds another count than hmma_expected's, or if
     K6a's four tiles (kChunkSums true) are missing."""
     text = (lib.path.parent / "nvcc.log").read_text()
     kernels = ("conv3x3_dw_kernel", "conv3x3_mma_kernel", "group_stats_kernel",
                "gn_relu_kernel", "sum_splits_kernel", "mad_flags_kernel",
-               "cluster_extract_kernel")
+               "cluster_extract_kernel", "strip_extract_kernel", "plane_gather_tiled_kernel")
     tool = Path(nvcc).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib.path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -277,6 +353,11 @@ def kernel_report(lib, nvcc):
     require(len(extract) == 12,
             f"K1's, K2's and K4's kernel: {len(extract)} of 12 instances compiled")
     log("  (cluster_extract_kernel<complex, kind: 0 K2, 1 K1, 2 K4, pixels a group>)")
+    strips = [r for r in names if "strip_extract_kernel" in r]
+    require(len(strips) == 16 and any("plane_gather_tiled_kernel" in r for r in names),
+            f"the strip kernel: {len(strips)} of 16 instances compiled, or K3's tiled "
+            "kernel is missing")
+    log("  (strip_extract_kernel<complex, kind: 0 K2, 2 K4, pixels a group, pass 2>)")
     fit = (ctypes.c_int * 3)()
     for kind, name in ((1, "K1"), (0, "K2"), (2, "K4")):
         for is_complex in (1, 0):
@@ -442,6 +523,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from rfi_toolbox_tpu_torch import ops
+    from rfi_toolbox_tpu_torch.data import ArrayDataset, BatchWriter, StreamingDataset
     from rfi_toolbox_tpu_torch.evaluation import evaluate_segmentation
     from rfi_toolbox_tpu_torch.io import flag_waterfalls
     from rfi_toolbox_tpu_torch.models import DoubleConv, UNet
@@ -452,12 +534,13 @@ def main():
         mad_flag_patches,
         mad_flag_patches_plain,
     )
-    from rfi_toolbox_tpu_torch.preprocess import Preprocessor
+    from rfi_toolbox_tpu_torch.preprocess import DevicePreprocessor, Preprocessor
     from rfi_toolbox_tpu_torch.preprocess import pipeline as P
     from rfi_toolbox_tpu_torch.preprocess.static_prep import make_static_prep_fn
     from rfi_toolbox_tpu_torch.serving import CompiledPredictor
-    from rfi_toolbox_tpu_torch.synth import make_sample_generator
+    from rfi_toolbox_tpu_torch.synth import SyntheticDataGenerator, make_sample_generator
     from rfi_toolbox_tpu_torch.train import (
+        RawPatchTrainer,
         Trainer,
         bce_dice_loss,
         create_train_state,
@@ -539,6 +622,49 @@ def main():
     k4_bound, k4_bound_by = bound(px * (8 + 12), px * K4_OPS_PER_PIXEL)
     log(f"K4 at (512,128,128) c64: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, "
         f"bound {k4_bound:.4f} ms ({k4_bound_by}), {k4_ms / k4_bound:.1f}x the bound")
+
+    # K4 above 128 x 128: the strip kernel
+    p256 = P.patchify_batch(wf, LARGE).contiguous()  # (128, 256, 256)
+    nan256 = p256[:8].clone()
+    nan256[(torch.rand(nan256.shape, generator=g4) < 0.01).to(dev)] = complex(float("nan"), 0.0)
+    nan256[3] = complex(float("nan"), 0.0)  # a patch of NaN only
+    shifted256 = torch.empty(8 * LARGE * LARGE + 1, dtype=torch.complex64, device=dev)
+    shifted256 = shifted256[1:].view(8, LARGE, LARGE)
+    shifted256.copy_(p256[8:16])
+    large_cases = {
+        "32x256^2": p256[:32],
+        "8x1024^2": wf,
+        "real 32x256^2": p256[:32].abs(),
+        "real 8x1024^2": wf.abs(),
+        "NaN pixels 256^2": nan256,
+        "constant 256^2": torch.full((3, LARGE, LARGE), 2 + 1j, dtype=torch.complex64,
+                                     device=dev),
+        "129x130": wf[:, :129, :130].contiguous(),
+        "1000x1024": wf[:2, :1000].contiguous(),
+        "8 B off 16 B 256^2": shifted256,
+    }
+    k4_large_err = {}
+    for name, x in large_cases.items():
+        got, want = fused_extract_channels(x), fused_extract_channels_plain(x)
+        torch.cuda.synchronize()
+        k4_large_err[name] = extract_err((got,), (want,), f"K4 {name}")
+    del got, want
+    log("K4 above 128^2 (strip kernel) max|kernel-plain|: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in k4_large_err.items()) + f" (tol {K4_TOL:g})")
+    require(max(k4_large_err.values()) <= K4_TOL,
+            "K4's strip kernel disagrees with its plain version")
+    k4_large = {}
+    big = wf.repeat(16, 1, 1)  # (128, 1024, 1024): phase 14's generation batch
+    for shape, x, calls in (("(32,256,256)", p256[:32], 50), ("(128,1024,1024)", big, 10)):
+        n_px = x.numel()
+        b_ms, b_by = bound(n_px * (8 + 12), n_px * K4_OPS_PER_PIXEL)
+        k4_large[shape] = (cuda_ms(lambda: fused_extract_channels(x), calls=calls),
+                           cuda_ms(lambda: fused_extract_channels_plain(x), calls=3, windows=3),
+                           b_ms, b_by)
+        k_ms, p_ms, _, _ = k4_large[shape]
+        log(f"K4 (strip kernel) at {shape} c64: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), {k_ms / b_ms:.1f}x the bound")
+    del big
     phases["K4"] = time.perf_counter() - t
 
     # -- K5 -----------------------------------------------------------------
@@ -611,6 +737,30 @@ def main():
         log(f"  logits card vs CPU on 8 patches: max abs diff {err:.2e} "
             f"(tol {LOGIT_TOL:g}, |logit| <= {float(cpu.abs().max()):.1f})")
         require(err <= LOGIT_TOL, "card logits disagree with the CPU")
+
+    # the BatchNorm snapshot at patch_size=256: K4's strip kernel
+    pred = CompiledPredictor.from_snapshot(SNAPSHOTS[0], batch_size=FLAG_BATCH_LARGE,
+                                           input_shape=(LARGE, LARGE, 3))
+    flag_waterfalls(wf, method="model", predictor=pred, patch_size=LARGE)  # warm-up
+    torch.cuda.synchronize()
+    fused_extract_channels.launches = 0
+    t0 = time.perf_counter()
+    flags = flag_waterfalls(wf, method="model", predictor=pred, patch_size=LARGE)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    k4_large_flag_launches = fused_extract_channels.launches
+    plain = P.unpatchify_batch(
+        pred(fused_extract_channels_plain(P.patchify_batch(wf, LARGE).contiguous())),
+        N_WATERFALLS, SIDE, SIDE)
+    agree = float((flags == plain).double().mean())
+    m = evaluate_segmentation(flags, mask)
+    log(f"model {SNAPSHOTS[0].split('/')[-1]} at patch_size={LARGE}: K4 launches "
+        f"{k4_large_flag_launches} in one call ({1e3 * call_s:.1f} ms); masks agree with the "
+        f"plain extraction's on {agree:.6f} of the pixels (tol {MASK_AGREE:g}); IoU "
+        f"{m['iou']:.4f} (not checked: the snapshot was trained on 128^2 patches)")
+    require(flags.shape == wf.shape and k4_large_flag_launches == 1,
+            "the model path at patch_size=256 did not launch K4 once")
+    require(agree >= MASK_AGREE, "patch_size=256: K4's masks disagree with the plain path")
     phases["model"] = time.perf_counter() - t
 
     # -- MAD path -----------------------------------------------------------
@@ -733,6 +883,104 @@ def main():
         log(f"{name} at M={m_base}, K={K_STATIC}, 128^2: kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
             f"{k_ms / bound_ms:.1f}x the bound")
+
+    # K2, K1, K3 above 128 x 128: the strip kernel, the strip K2 and K3's
+    # gather, K3's 32 x 32 squares; at the static selection of patch 256
+    prep256 = make_static_prep_fn(LARGE, K_LARGE, return_patches=False)
+    b256 = prep256.base(twf.reshape(-1, SIDE, SIDE), tmask.reshape(-1, SIDE, SIDE))
+    keep256 = P.static_select_from_has(b256.has, K_LARGE,
+                                       torch.Generator(device=dev).manual_seed(0))
+    bidx256, var256, pidx256 = prep256.indices(b256, keep256)
+    base256 = b256.base.contiguous()  # (128, 256, 256) complex64
+    m256 = base256.shape[0]
+    wf8 = twf.reshape(-1, SIDE, SIDE).contiguous()  # 8 whole 1024^2 base patches
+    nan_b256 = base256[:16].clone()
+    nan_b256[(torch.rand(nan_b256.shape, generator=g) < 0.01).to(dev)] = complex(float("nan"), 0.0)
+    nan_b256[5] = complex(float("nan"), 0.0)
+    shifted_b256 = torch.empty(16 * LARGE * LARGE + 1, dtype=torch.complex64, device=dev)
+    shifted_b256 = shifted_b256[1:].view(16, LARGE, LARGE)
+    shifted_b256.copy_(base256[16:32])
+    ragged_large = {"129x130": wf8[:, :129, :130].contiguous(),
+                    "1000x1024": wf8[:2, :1000].contiguous()}
+
+    def some(m, k=37):
+        """k random (base_idx, pidx) over m base patches."""
+        return (torch.randint(0, m, (k,), generator=g).to(dev),
+                torch.randint(0, 3, (k,), generator=g).to(dev))
+
+    k2_large_err = {}
+    for name, x in {f"M={m256} 256^2": base256, "8x1024^2": wf8, "real 256^2": base256.abs(),
+                    "NaN 256^2": nan_b256,
+                    "constant 256^2": const.new_full((3, LARGE, LARGE), 2 + 1j),
+                    "8 B off 16 B": shifted_b256, **ragged_large}.items():
+        got = ops.fused_extract_channel_planes(x)
+        want = ops.fused_extract_channel_planes_plain(x)
+        torch.cuda.synchronize()
+        k2_large_err[name] = extract_err(got, want, f"K2 {name}")
+    k1_large_cases = {
+        f"K={K_LARGE} 256^2": (base256, bidx256, pidx256),
+        "8x1024^2": (wf8, *some(8, 19)),
+        "real 256^2": (base256.abs(), bidx256, pidx256),
+        "NaN 256^2": (nan_b256, *some(16)),
+        "8 B off 16 B": (shifted_b256, *some(16)),
+        **{name: (x, *some(x.shape[0], 9)) for name, x in ragged_large.items()},
+    }
+    k1_large_err = {}
+    for name, args in k1_large_cases.items():
+        got, want = ops.fused_gather_extract(*args), ops.fused_gather_extract_plain(*args)
+        torch.cuda.synchronize()
+        k1_large_err[name] = extract_err(got, want, f"K1 {name}")
+    planes256 = ops.fused_extract_channel_planes(base256)
+    planes1024 = ops.fused_extract_channel_planes(wf8)
+    every_variant = torch.arange(19, device=dev) % 4
+    k3_large_diff = {}
+    for name, args in {f"K={K_LARGE} 256^2": (planes256, bidx256, pidx256, var256),
+                       "odd K=37 256^2": (planes256, bidx256[:37], pidx256[:37], var256[:37]),
+                       "8x1024^2": (planes1024, *some(8, 19), every_variant)}.items():
+        got = ops.fused_plane_gather_transform(*args)
+        want = ops.fused_plane_gather_transform_plain(*args)
+        torch.cuda.synchronize()
+        k3_large_diff[name] = sum(int((a != b).sum()) for a, b in zip(got, want))
+    del got, want, planes1024
+    log("above 128^2: K2 max|kernel-plain|: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in k2_large_err.items()) + "; K1: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in k1_large_err.items()) + f" (tol {EXTRACT_TOL:g}); K3 "
+        "values differing: " + ", ".join(f"{k} {v}" for k, v in k3_large_diff.items())
+        + " (must be 0)")
+    require(max(k2_large_err.values()) <= EXTRACT_TOL, "K2 above 128^2 disagrees")
+    require(max(k1_large_err.values()) <= EXTRACT_TOL, "K1 above 128^2 disagrees")
+    require(not any(k3_large_diff.values()), "K3 above 128 is not bit-equal")
+
+    px256 = LARGE * LARGE
+    distinct256 = int(torch.unique(bidx256).numel())
+    distinct_grad256 = int(torch.unique(pidx256 * m256 + bidx256).numel())
+    p32 = base256[:32]
+    large_kernels = {
+        "K2 (32,256,256)": (lambda: ops.fused_extract_channel_planes(p32),
+                            lambda: ops.fused_extract_channel_planes_plain(p32),
+                            bound(32 * px256 * (8 + 5 * 4), 32 * px256 * PLANE_OPS_PER_PIXEL)),
+        "K2": (lambda: ops.fused_extract_channel_planes(base256),
+               lambda: ops.fused_extract_channel_planes_plain(base256),
+               bound(m256 * px256 * (8 + 5 * 4), m256 * px256 * PLANE_OPS_PER_PIXEL)),
+        "K1": (lambda: ops.fused_gather_extract(base256, bidx256, pidx256),
+               lambda: ops.fused_gather_extract_plain(base256, bidx256, pidx256),
+               bound(distinct256 * px256 * 8 + K_LARGE * (2 * 4 + 3 * 4 * px256),
+                     distinct256 * px256 * PLANE_OPS_PER_PIXEL)),
+        "K3": (lambda: ops.fused_plane_gather_transform(planes256, bidx256, pidx256, var256),
+               lambda: ops.fused_plane_gather_transform_plain(planes256, bidx256, pidx256,
+                                                              var256),
+               bound((distinct_grad256 + 2 * distinct256) * px256 * 4
+                     + K_LARGE * (3 * 4 + 3 * 4 * px256), 0)),
+    }
+    large_ms = {}
+    for name, (kernel, plain, (bound_ms, bound_by)) in large_kernels.items():
+        large_ms[name] = (cuda_ms(kernel, calls=20, windows=3),
+                          cuda_ms(plain, calls=5, windows=3), bound_ms, bound_by)
+        k_ms, p_ms, _, _ = large_ms[name]
+        where = name.split(" ", 1)[1] if " " in name else f"M={m256}, K={K_LARGE}, 256^2"
+        log(f"{name.split()[0]} above 128^2 at {where}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{k_ms / bound_ms:.1f}x the bound")
     phases["K1-K3"] = time.perf_counter() - t
 
     # -- static prep through create_dataset ------------------------------------
@@ -761,11 +1009,15 @@ def main():
               "real auto": dict(extract="auto", flags=tmask, data=twf_real),
               "real planes": dict(extract="planes", flags=tmask, data=twf_real),
               "real materialised": dict(flags=tmask, data=twf_real,
-                                        size=dict(num_patches=K_STATIC))}
+                                        size=dict(num_patches=K_STATIC)),
+              "auto 256": dict(extract="auto", flags=tmask, patch=LARGE,
+                               size=dict(static_num_patches=K_LARGE)),
+              "planes 256": dict(extract="planes", flags=tmask, patch=LARGE,
+                                 size=dict(static_num_patches=K_LARGE))}
     for route, cfg in routes.items():
         def run(use_kernels):
             pre = Preprocessor(cfg.get("data", twf), flags=cfg["flags"])
-            ds = pre.create_dataset(patch_size=PATCH, seed=0,
+            ds = pre.create_dataset(patch_size=cfg.get("patch", PATCH), seed=0,
                                     extract=cfg.get("extract", "auto"),
                                     use_custom_flags=cfg["flags"] is not None,
                                     use_kernels=use_kernels,
@@ -788,7 +1040,8 @@ def main():
             f"same keep {same_keep}, flagged share of labels "
             f"{float(ds_k.labels.float().mean()):.4f}")
         n_out = K_STATIC if "size" not in cfg else keep_k.numel()
-        require(ds_k.images.shape == (n_out, PATCH, PATCH, 3), f"{route}: image shape")
+        side = cfg.get("patch", PATCH)
+        require(ds_k.images.shape == (n_out, side, side, 3), f"{route}: image shape")
         require(same_keep and same_labels and err <= EXTRACT_TOL,
                 f"create_dataset route {route}: kernels disagree with the plain path")
     require(prep_launches["auto"]["K1"] == 1, "the 'auto' route did not launch K1")
@@ -801,6 +1054,9 @@ def main():
             "real input: 'planes' did not launch K2 and K3")
     require(prep_launches["real materialised"]["K4"] == 1,
             "real input: the materialised path did not launch K4")
+    require(prep_launches["auto 256"]["K1"] == 1, "patch 256: 'auto' did not launch K1")
+    require(prep_launches["planes 256"]["K2"] == 1 and prep_launches["planes 256"]["K3"] == 1,
+            "patch 256: 'planes' did not launch K2 and K3")
     phases["static prep"] = time.perf_counter() - t
 
     # -- the training main path ----------------------------------------------------
@@ -1308,6 +1564,157 @@ def main():
     shutil.rmtree(out_dir)  # some 300 MB of checkpoints
     phases["train-export-serve"] = time.perf_counter() - t
 
+    # -- the file path: generator -> batch files -> streamed Trainer.fit ---------------
+    t = time.perf_counter()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    made = {}
+    for name, cfg in (("train", TRAIN_4K_CONFIG), ("val", VAL_1K_CONFIG)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        SyntheticDataGenerator(cfg, seed=SEED).generate(out_dir / name)
+        torch.cuda.synchronize()
+        made[name] = {"generate_s": time.perf_counter() - t0, **counts()}
+    train_dir, val_dir = out_dir / "train" / "exact_masks", out_dir / "val" / "exact_masks"
+    meta = json.loads((train_dir / "metadata.json").read_text())
+    gen_meta = json.loads((out_dir / "train" / "generation_metadata.json").read_text())
+    mad_meta = json.loads((out_dir / "train" / "mad_masks" / "metadata.json").read_text())
+    val_meta = json.loads((val_dir / "metadata.json").read_text())
+    events = json.loads((out_dir / "train" / "rfi_parameters.json").read_text())
+    synth = TRAIN_4K_CONFIG["synthetic"]
+    n_wf = synth["num_samples"] * synth["num_polarizations"]  # 32 whole waterfalls
+    n_train = n_wf * TRAIN_4K_CONFIG["processing"]["augmentation_rotations"]
+    n_val = VAL_1K_CONFIG["synthetic"]["num_samples"] * synth["num_polarizations"]
+    batch_files = sorted(p.name for p in train_dir.glob("batch_*.npz"))
+    disk_gb = sum(f.stat().st_size for f in out_dir.rglob("*") if f.is_file()) / 1e9
+    n_gen = -(-synth["num_samples"] // synth["generation_batch_size"])
+    log(f"file path: generated {meta['num_samples']} images {meta['image_shape']} in "
+        f"{batch_files} ({disk_gb:.2f} GB on disk with the MAD masks and validation), "
+        f"{mad_meta['num_samples']} MAD-mask waterfalls, {len(events)} samples' events; "
+        + "; ".join(f"{k}: generation, preprocessing and writes {v['generate_s']:.2f} s, "
+                    f"K4 launches {v['K4']}, K5 {v['K5']}" for k, v in made.items()))
+    require(meta["num_samples"] == gen_meta["num_patches"] == n_train
+            and meta["num_batches"] == len(batch_files) == -(-n_train // 100)
+            and meta["image_shape"] == [SIDE, SIDE, 3] and meta["format"] == "preprocessed",
+            "the training batch files do not match their metadata")
+    require(mad_meta["num_samples"] == n_wf and len(events) == synth["num_samples"]
+            and val_meta["num_samples"] == n_val, "the MAD masks or events are miscounted")
+    require(made["train"]["K4"] == n_gen and made["train"]["K5"] == n_gen
+            and made["val"]["K4"] == 1 and made["val"]["K5"] == 0,
+            "generation did not launch K4 and K5 once a generation batch")
+
+    # the MAD masks against K5's plain version on the file's own magnitudes
+    with np.load(out_dir / "train" / "mad_masks" / "batch_000.npz") as f:
+        mags = torch.as_tensor(f["images"]).to(dev)
+        mad_labels = torch.as_tensor(f["labels"]).to(dev)
+    mad_sigma = float(TRAIN_4K_CONFIG["processing"]["flag_sigma"])
+    mad_plain = ops.mad_flag_patches_plain(mags, mad_sigma)
+    mad_diff = int((mad_plain.to(torch.uint8) != mad_labels).sum())
+    log(f"  the {len(mags)} MAD masks against K5's plain version on the file's magnitudes: "
+        f"{mad_diff} pixels differ, {float(mad_labels.float().mean()):.4f} flagged")
+    require(mad_diff == 0, "the generated MAD masks differ from K5's plain version")
+    del mags, mad_labels, mad_plain
+    # the writer alone: the first training batch file's arrays put back on
+    # the card and written again as generate writes them (the copy to the
+    # host, the concatenation, the file write); the copy must equal the file
+    with np.load(train_dir / batch_files[0]) as f:
+        x_file, y_file = f["images"], f["labels"]
+    x_dev, y_dev = torch.as_tensor(x_file).to(dev), torch.as_tensor(y_file).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    writer = BatchWriter(out_dir / "rewrite", samples_per_batch=100)
+    writer.add_batch(ArrayDataset(x_dev, y_dev))
+    writer.finalize()
+    write_s = time.perf_counter() - t0
+    with np.load(out_dir / "rewrite" / "batch_000.npz") as f:
+        same_file = np.array_equal(f["images"], x_file) and np.array_equal(f["labels"], y_file)
+    log(f"  the writer alone on {len(x_file)} images of 1024^2 from the card: {write_s:.2f} s "
+        f"({x_file.nbytes / write_s / 1e9:.2f} GB/s of images); the copy equals the file "
+        f"{same_file}")
+    require(same_file, "BatchWriter's copy of a batch file differs from it")
+    del x_dev, y_dev, x_file, y_file
+    shutil.rmtree(out_dir / "rewrite")
+
+    stream = StreamingDataset(train_dir)
+    trainer = Trainer(UNet(init_features=32, norm="batch", dtype=torch.bfloat16), seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = trainer.fit(stream, str(val_dir), num_epochs=1, batch_size=FIT_BATCH)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    rec = result["history"][0]
+    log(f"Trainer.fit on the streamed files (UNet32 bf16, batch {FIT_BATCH}): "
+        f"{trainer.state.step} steps, {trainer.state.step * FIT_BATCH} of {len(stream)} "
+        f"samples; train loss {rec['train_loss']:.4f}, val loss {rec['val_loss']:.4f}, val IoU "
+        f"{rec['val_iou']:.4f}; epoch {rec['seconds']:.2f} s ({n_train / rec['seconds']:.1f} "
+        f"images of 1024^2 a second, {n_train * (SIDE // PATCH) ** 2 / rec['seconds']:.0f} "
+        f"128^2-patch equivalents), fit with validation {fit_s:.2f} s; resident batch files "
+        f"at most {stream.max_resident_files}, shuffle pool at most {stream.pool_peak_files} "
+        f"files, reader {stream.last_reader}")
+    require(trainer.state.step * FIT_BATCH == n_train == len(stream),
+            "the epoch did not consume every sample")
+    require(stream.max_resident_files <= 3, "more than 3 batch files resident")
+    require(np.isfinite(rec["train_loss"]) and np.isfinite(rec["val_loss"])
+            and np.isfinite(rec["val_iou"]), "file path: a loss or the val IoU is not finite")
+    file_path_launches = made["train"]["K4"] + made["val"]["K4"]
+    # where the epoch's time goes: the same steps on one minibatch already
+    # on the card, against the epoch (file reads, the shuffle pool, copies)
+    t0 = time.perf_counter()
+    for xh, yh in stream.iter_epoch(FIT_BATCH, np.random.default_rng(0)):
+        pass  # the epoch's reads and shuffle pool alone
+    read_s = time.perf_counter() - t0
+    copy_ms = cuda_ms(lambda: (torch.as_tensor(xh).to(dev, torch.float32),
+                               torch.as_tensor(yh).to(dev, torch.float32)), calls=3, windows=3)
+    x = torch.as_tensor(xh).to(dev, torch.float32)
+    y = torch.as_tensor(yh).to(dev, torch.float32)
+    step_ms = cuda_ms(lambda: train_step(trainer.state, x, y), calls=3, windows=3)
+    n_steps = n_train // FIT_BATCH
+    log(f"  where the epoch's {rec['seconds']:.2f} s go: its {n_steps} steps on minibatches "
+        f"already on the card {n_steps * step_ms / 1e3:.2f} s ({step_ms:.1f} ms a step); the "
+        f"stream's file reads and shuffle pool alone {read_s:.2f} s; the minibatches' copies "
+        f"to the card {n_steps * copy_ms / 1e3:.2f} s ({copy_ms:.1f} ms each, pageable)")
+    del x, y, xh, yh
+    shutil.rmtree(out_dir)  # some 1.8 GB of batch files
+    phases["file path"] = time.perf_counter() - t
+
+    # -- the raw-patch path: DevicePreprocessor -> RawPatchTrainer ------------------------
+    t = time.perf_counter()
+    raw_pre = DevicePreprocessor(wf, mask)
+    raw, raw_masks = raw_pre.create_raw_patches(seed=0)
+    require(tuple(raw.shape[1:]) == (RAW_PATCH, RAW_PATCH) and raw.is_cuda
+            and len(raw) >= RAW_BATCH, "create_raw_patches: shape or device")
+    raw_trainer = RawPatchTrainer(UNet(init_features=32, norm="batch", dtype=torch.bfloat16),
+                                  seed=1)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = raw_trainer.fit(raw, raw_masks, num_epochs=1, batch_size=RAW_BATCH)
+    torch.cuda.synchronize()
+    raw_s = time.perf_counter() - t0
+    raw_steps = raw_trainer.state.step
+    raw_launches = fused_extract_channels.launches
+    raw_loss = result["history"][0]["train_loss"]
+    log(f"raw-patch path: {len(raw)} patches of {RAW_PATCH}^2 "
+        f"({raw_pre.estimate_storage_mb():.1f} MiB), RawPatchTrainer UNet32 bf16 "
+        f"1 epoch at batch {RAW_BATCH}: {raw_steps} steps, K4 launches {raw_launches}, mean "
+        f"loss {raw_loss:.4f}, {raw_s:.2f} s ({raw_steps * RAW_BATCH / raw_s:.1f} patches/s, "
+        f"the first step's cuDNN set-up included)")
+    require(raw_steps == len(raw) // RAW_BATCH and raw_launches == raw_steps,
+            "the raw-patch path did not launch K4 once a step")
+    require(np.isfinite(raw_loss), "the raw-patch path's loss is not finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = raw_trainer.fit(raw, raw_masks, num_epochs=RAW_WARM_EPOCHS, batch_size=RAW_BATCH)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_steps = RAW_WARM_EPOCHS * raw_steps
+    log(f"  {RAW_WARM_EPOCHS} warm epochs back to back (cuDNN set up): {warm_steps} steps in "
+        f"{warm_s:.3f} s, {warm_steps * RAW_BATCH / warm_s:.1f} patches/s, "
+        f"{warm_s / warm_steps * 1e3:.2f} ms a step")
+    require(all(np.isfinite(r["train_loss"]) for r in warm["history"]),
+            "the raw-patch path's warm losses are not finite")
+    phases["raw-patch path"] = time.perf_counter() - t
+
     log("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total wall time {time.perf_counter() - T_START:.1f} s")
     static_json = []
@@ -1326,6 +1733,27 @@ def main():
              "launches": launches, "max_abs_err": err, "ms": k_ms,
              "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
              "library_ms": None})
+    strips = "rfi_toolbox_tpu_torch/ops/csrc/extract_strips.cu"
+    k4_large_ms, k4_large_plain, k4_large_bound, k4_large_by = k4_large["(128,1024,1024)"]
+    for name, src, line, err, launches, (k_ms, p_ms, bound_ms, bound_by) in (
+            ("fused_gather_extract (above 128x128: strip K2 + K3's gather)",
+             f"{strips} + rfi_toolbox_tpu_torch/ops/csrc/plane_gather.cu", 340,
+             max(k1_large_err.values()), prep_launches["auto 256"]["K1"], large_ms["K1"]),
+            ("fused_extract_channel_planes (above 128x128: strip kernel)", strips, 195,
+             max(k2_large_err.values()), prep_launches["planes 256"]["K2"], large_ms["K2"]),
+            ("fused_plane_gather_transform (above 128: 32x32 squares)",
+             "rfi_toolbox_tpu_torch/ops/csrc/plane_gather.cu", 414,
+             float(max(k3_large_diff.values())), prep_launches["planes 256"]["K3"],
+             large_ms["K3"]),
+            ("fused_extract_channels (above 128x128: strip kernel)", strips, 455,
+             max(k4_large_err.values()),
+             file_path_launches + raw_launches + k4_large_flag_launches,
+             (k4_large_ms, k4_large_plain, k4_large_bound, k4_large_by))):
+        static_json.append(
+            {"name": name, "route": "cuda", "source": src,
+             "replaces": f"rfi_toolbox_tpu/ops/fused_channels.py:{line}",
+             "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     kernels = static_json + [
         {"name": "fused_extract_channels", "route": "cuda",
          "source": "rfi_toolbox_tpu_torch/ops/csrc/channel_planes.cu",

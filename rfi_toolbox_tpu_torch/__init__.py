@@ -10,17 +10,23 @@ NHWC ``(N, H, W, 3)``, flags ``(M, C, T)`` bool. Entry points run on the
 CUDA device unless the caller passes ``device="cpu"``; with no card
 they raise instead of falling back.
 
-Subpackages (the slices ported so far: flagging, and the training main
-path):
-- utils: device resolution and the float32 precision switch
+Subpackages (the slices ported so far: flagging, the training main
+path, train -> export -> serve, and training from files and raw patches):
+- utils: device resolution, the float32 precision switch, progress bars
 - preprocess: the plain pipeline (the plain versions of the kernels),
-  the static virtual-augmentation prep and ``Preprocessor``
+  the static virtual-augmentation prep, ``Preprocessor`` and the
+  raw-patch ``DevicePreprocessor``
 - ops: hand-written CUDA kernels (csrc/) with their ctypes wrappers
 - models: UNet (bfloat16 compute, Flax BatchNorm and initialisers),
   BatchNorm folding, Flax snapshot conversion
-- synth: synthetic waterfall batches with exact RFI masks
-- data: the in-memory ``ArrayDataset``
-- train: losses, the optax-equivalent optimiser and the train steps
+- synth: synthetic waterfall batches with exact RFI masks, and
+  ``SyntheticDataGenerator``, which writes datasets to disk
+- data: ``ArrayDataset``, the batch-file writer ``BatchWriter``, the
+  bounded-memory reader ``StreamingDataset`` and ``load_batches``
+- native: the threaded ``.npy`` reader (C++, built with g++ on first use)
+- train: losses, the optax-equivalent optimiser, the train steps,
+  ``Trainer`` (in memory or streamed from batch files) and
+  ``RawPatchTrainer``
 - serving: fixed-batch segmentation predictor
 - io: ``flag_waterfalls``
 - evaluation: segmentation metrics

@@ -1,5 +1,18 @@
-"""In-memory dataset container."""
+"""Dataset containers and on-disk batch storage (``RFIMaskDataset`` waits
+for the port of the measurement-set reader)."""
 
-from .batched_dataset import ArrayDataset, TorchDataset
+from .batched_dataset import (
+    ArrayDataset,
+    BatchWriter,
+    StreamingDataset,
+    TorchDataset,
+    load_batches,
+)
 
-__all__ = ["ArrayDataset", "TorchDataset"]
+__all__ = [
+    "ArrayDataset",
+    "TorchDataset",
+    "BatchWriter",
+    "StreamingDataset",
+    "load_batches",
+]

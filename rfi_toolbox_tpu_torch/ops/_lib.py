@@ -49,9 +49,11 @@ _SIGNATURES = {
     # on the card, dynamic shared memory bytes a CTA
     "rfi_channel_planes_occupancy": (_I, _I, _I, _I, _PI),
     # grad3, log_amp, phase, base_idx, pidx, variant, grad_out, amp_out,
-    # phase_out, m, k, h, stream
+    # phase_out, m, k, h, w, stream
     "rfi_fused_plane_gather_transform": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # kind (0 K2, 2 K4), in, out, amp, phase, keys, n, h, w, is_complex, stream
+    "rfi_extract_strips": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, w, b (or None), y, n, h, w, ci, co, relu, stream
     "rfi_conv3x3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # n, h, w, ci, co, out: splits

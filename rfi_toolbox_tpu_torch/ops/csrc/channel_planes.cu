@@ -74,7 +74,8 @@
 // few ulp of the plain version's divisions, far inside the 2e-5 gate; the
 // magnitude and the gradients stay exact (equal to the plain version's).
 // The outputs are stored streaming (evict first): 9% of K1's time. Patches
-// up to 128 x 128 pixels; the wrappers raise for larger ones.
+// up to 128 x 128 pixels (kMaxPixels); the wrappers send larger ones to the
+// strip kernel (extract_strips.cu).
 //
 // Tried on the H100 at M = 512, K = 1920, 128 x 128, and not kept
 // (PERF.md): grouping K1's outputs with torch.sort (0.062 ms, a third of the
@@ -106,17 +107,6 @@ constexpr int kValues = 8;
 constexpr int kK2 = 0;  // every base patch's five planes
 constexpr int kK1 = 1;  // the selected outputs' three planes
 constexpr int kK4 = 2;  // every patch's three channels, (m, h, w, 3)
-
-// The affines of the plain version with each division by a constant
-// folded into a multiplication: x * scale + shift.
-constexpr float kAmpScale = 1.0f / kLogSpan;          // (la - LOG_MIN) / span
-constexpr float kAmpShift = -kLogMin / kLogSpan;
-constexpr float kInvStd1 = 1.0f / kStd1;
-constexpr float kShift0 = -kMean0 / kStd0;            // affine(0) of plane 0
-constexpr float kShift1 = -kMean1 / kStd1;
-constexpr float kPhaseScale = 1.0f / (kTwoPi * kStd2);  // atan2 -> affine
-constexpr float kPhaseShift = (0.5f - kMean2) / kStd2;
-constexpr float kPhaseZero = -kMean2 / kStd2;          // real input's phase
 
 template <bool kComplex, int kPx>
 struct Group {  // the input of kPx pixels of one row
@@ -156,33 +146,6 @@ __device__ __forceinline__ void store(float* p, const float (&v)[kPx]) {
   }
 }
 
-// An output store: streaming (evict first), as nothing reads it back.
-template <int kPx>
-__device__ __forceinline__ void store_out(float* p, const float (&v)[kPx]) {
-  if constexpr (kPx == 4) {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  } else {
-    __stcs(p, v[0]);
-  }
-}
-
-// K4's store of kPx pixels' three channels, interleaved: 3 kPx floats.
-template <int kPx>
-__device__ __forceinline__ void store_channels(float* p, const float (&g)[kPx],
-                                               const float (&a)[kPx],
-                                               const float (&ph)[kPx]) {
-  if constexpr (kPx == 4) {
-    float4* o = reinterpret_cast<float4*>(p);
-    __stcs(o, make_float4(g[0], a[0], ph[0], g[1]));
-    __stcs(o + 1, make_float4(a[1], ph[1], g[2], a[2]));
-    __stcs(o + 2, make_float4(ph[2], g[3], a[3], ph[3]));
-  } else {
-    __stcs(p, g[0]);
-    __stcs(p + 1, a[0]);
-    __stcs(p + 2, ph[0]);
-  }
-}
-
 template <int kPx>
 __device__ __forceinline__ void load_row(const float* p, float (&v)[kPx]) {
   if constexpr (kPx == 4) {
@@ -195,34 +158,6 @@ __device__ __forceinline__ void load_row(const float* p, float (&v)[kPx]) {
     v[0] = p[0];
   }
 }
-
-// min(max(x, 0), 1) with NaN kept, then the affine of plane `1`.
-__device__ __forceinline__ float amp_value(float log_amp) {
-  return fmaf(clip01(fmaf(log_amp, kAmpScale, kAmpShift)), kInvStd1, kShift1);
-}
-
-__device__ __forceinline__ float phase_value(float2 z) {
-  return fmaf(atan2f(z.y, z.x), kPhaseScale, kPhaseShift);
-}
-
-// (x - lo) / span, then the plane's affine, as one FMA: scale is
-// 1 / (span * std), or 0 where span is not positive (constant patch: every
-// pixel gets affine(0), NaN included, as in the plain version).
-struct Norm {
-  float lo, scale, shift;
-  bool pos;
-  __device__ __forceinline__ Norm(float lo_, float hi, float std, float shift_)
-      : lo(lo_), shift(shift_) {
-    const float span = __fsub_rn(hi, lo_);
-    pos = span > 0.0f;
-    // a span of finite log-amplitudes is 0 or above 1e-15 (|log10 y| is 0
-    // or above 2.6e-8 for float32 y), so the reciprocal does not overflow
-    scale = pos ? __frcp_rn(__fmul_rn(span, std)) : 0.0f;
-  }
-  __device__ __forceinline__ float operator()(float x) const {
-    return pos ? fmaf(__fsub_rn(x, lo), scale, shift) : shift;
-  }
-};
 
 // The gradients of kPx pixels of local row `lr` (1-based in the tile; the
 // halo rows are 0 and rows + 1) at columns c..c+kPx-1, global row r:

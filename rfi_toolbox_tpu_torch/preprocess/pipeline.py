@@ -1,10 +1,10 @@
 """Waterfall -> patch preprocessing in plain PyTorch.
 
-Counterpart of ``rfi_toolbox_tpu/preprocess/pipeline.py``:
-patchify/unpatchify, the rotation augmentation, the 3-channel extraction
-and its variant-aware five-plane form, the ImageNet affine, the
-per-patch MAD flags, the static on-device patch selection, and the
-real-input median normalisation and stretch. ``extract_channels``,
+Counterpart of ``rfi_toolbox_tpu/preprocess/pipeline.py``: patchify
+(of one 2-D array, and batched)/unpatchify, the rotation augmentation,
+the 3-channel extraction and its variant-aware five-plane form, the
+ImageNet affine, the per-patch MAD flags, the static on-device patch
+selection, and the real-input median normalisation and stretch. ``extract_channels``,
 ``extract_channel_planes`` and ``mad_flag_patches`` are the plain
 versions of the CUDA kernels in :mod:`rfi_toolbox_tpu_torch.ops` (K4,
 K2 and K5); the kernels are held against these functions on the card,
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 __all__ = [
+    "patchify",
     "patchify_batch",
     "unpatchify_batch",
     "apply_rotations",
@@ -64,6 +65,26 @@ def _pad_to_multiple(x, patch_size):
     out = x.new_zeros((*x.shape[:-2], h + ph, w + pw))
     out[..., :h, :w] = x
     return out
+
+
+def patchify(array, patch_shape, step):
+    """2-D array -> (n_h, n_w, patch_h, patch_w) grid of patches taken
+    every ``step`` rows and columns (the reference's ``torch.unfold``
+    helper); a tensor on the array's device, or on the CPU for numpy
+    input. Non-overlapping steps are a reshape and a permute, overlapping
+    ones a gather of strided windows."""
+    patch_h, patch_w = patch_shape
+    array = torch.as_tensor(array)
+    h, w = array.shape
+    n_h = (h - patch_h) // step + 1
+    n_w = (w - patch_w) // step + 1
+    if step == patch_h == patch_w:
+        trimmed = array[:n_h * patch_h, :n_w * patch_w]
+        return trimmed.reshape(n_h, patch_h, n_w, patch_w).permute(0, 2, 1, 3)
+    dev = array.device
+    rows = (torch.arange(n_h, device=dev) * step)[:, None] + torch.arange(patch_h, device=dev)
+    cols = (torch.arange(n_w, device=dev) * step)[:, None] + torch.arange(patch_w, device=dev)
+    return array[rows[:, None, :, None], cols[None, :, None, :]]
 
 
 def patchify_batch(waterfalls, patch_size):

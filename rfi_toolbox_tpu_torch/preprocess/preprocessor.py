@@ -1,8 +1,10 @@
 """Preprocessor: waterfalls -> training patches, on the card.
 
-Counterpart of ``rfi_toolbox_tpu/preprocess/preprocessor.py``
-(``Preprocessor``; ``DevicePreprocessor`` is not ported yet). Pipeline
-order of ``create_dataset``:
+Counterpart of ``rfi_toolbox_tpu/preprocess/preprocessor.py``:
+``Preprocessor``, and ``DevicePreprocessor`` (alias ``GPUPreprocessor``),
+which returns raw complex patches and their masks for
+:class:`~rfi_toolbox_tpu_torch.train.raw_patches.RawPatchTrainer`.
+Pipeline order of ``create_dataset``:
 
   1. rotation augmentation (or flatten baselines x pols)
   2. patchify (skipped when the waterfall fits in one patch)
@@ -29,7 +31,7 @@ from .static_prep import make_static_prep_fn
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Preprocessor"]
+__all__ = ["Preprocessor", "DevicePreprocessor", "GPUPreprocessor"]
 
 
 def _flatten_waterfalls(data, device, dtype=None):
@@ -243,3 +245,92 @@ class Preprocessor:
         self.patch_flags = flag_patches
         self.dataset = ArrayDataset(images, flag_patches.to(torch.uint8), metadata)
         return self.dataset
+
+
+class DevicePreprocessor:
+    """Raw complex patches and their masks, with the least host work: no
+    channel extraction, no ImageNet affine and no materialised
+    augmentation (:class:`~rfi_toolbox_tpu_torch.train.raw_patches.RawPatchTrainer`
+    draws those on the device at each step).
+
+    >>> raw, masks = DevicePreprocessor(vis, flags).create_raw_patches()
+
+    Args:
+        data: complex waterfalls (baselines, pols, channels, times) or
+            (pols, channels, times), array or tensor.
+        flags: optional flags of the same shape; without them a pixel is
+            masked where ``|data| > 0``, as the reference does.
+        device: ``None`` for the CUDA card, or e.g. ``"cpu"``.
+    """
+
+    def __init__(self, data, flags=None, device=None):
+        if not hasattr(data, "ndim"):
+            data = np.asarray(data)
+        if data.ndim == 3:
+            data = data[None]
+        elif data.ndim != 4:
+            raise ValueError(f"Data must be 3D or 4D, got shape {tuple(data.shape)}")
+        if not torch.as_tensor(data[:1]).is_complex():
+            raise ValueError("DevicePreprocessor requires complex data. "
+                             "Use standard Preprocessor for real-valued data.")
+        self.data = data
+        self.flags = flags
+        self.device = device
+        self.raw_patches = None
+        self.raw_masks = None
+        self.original_shapes = None
+
+    def create_raw_patches(self, patch_size=256, remove_blank=True, num_patches=None,
+                           num_workers=4, seed=None):
+        """Patchify, blank removal and shuffle only: returns ``(patches (N,
+        p, p) complex64, masks (N, p, p) bool)`` on the device (a waterfall
+        no larger than one patch stays whole).
+
+        The kept indices are the JAX package's for the same ``seed`` (numpy's
+        ``default_rng(seed)``, or the global numpy RNG when None): the
+        flagged patches (all with ``remove_blank=False``), cut to
+        ``num_patches`` by ``rng.choice`` as the reference does, then
+        permuted. ``num_workers`` is ignored.
+        """
+        del num_workers
+        dev = resolve_device(self.device)
+        flat = _flatten_waterfalls(self.data, dev, torch.complex64)
+        if self.flags is not None:
+            flag_flat = _flatten_waterfalls(self.flags, dev) != 0
+        else:
+            flag_flat = P.magnitude(flat) > 0
+
+        h, w = flat.shape[-2:]
+        self.original_shapes = [(h, w)] * flat.shape[0]
+        if h <= patch_size and w <= patch_size:
+            patches, masks = flat, flag_flat
+        else:
+            patches = P.patchify_batch(flat, patch_size)
+            masks = P.patchify_batch(flag_flat, patch_size)
+
+        n = patches.shape[0]
+        rng = np.random.default_rng(seed) if seed is not None else np.random
+        if remove_blank:
+            keep = np.nonzero(masks.reshape(n, -1).any(dim=1).cpu().numpy())[0]
+        else:
+            keep = np.arange(n)
+        if num_patches and num_patches < len(keep):
+            keep = np.sort(rng.choice(len(keep), num_patches, replace=False))
+        keep = torch.as_tensor(rng.permutation(keep), dtype=torch.long, device=dev)
+        self.raw_patches = patches[keep]
+        self.raw_masks = masks[keep]
+        return self.raw_patches, self.raw_masks
+
+    def estimate_storage_mb(self):
+        """The raw patches' size in MiB (0 before :meth:`create_raw_patches`
+        or when none was kept)."""
+        if self.raw_patches is None or len(self.raw_patches) == 0:
+            return 0.0
+        return float(self.raw_patches.numel() * self.raw_patches.element_size()) / (1024 * 1024)
+
+    # the reference's private name
+    _estimate_storage_mb = estimate_storage_mb
+
+
+# the reference's name
+GPUPreprocessor = DevicePreprocessor

@@ -1,6 +1,9 @@
-"""Synthetic RFI waterfalls on the card."""
+"""Synthetic RFI waterfalls on the card, and the config-driven dataset
+generator that writes them to disk."""
 
 from . import events
-from .sample import generate_bandpass, make_sample_generator
+from .generator import RawPatchDataset, SyntheticDataGenerator
+from .sample import generate_bandpass, make_sample_generator, params_to_event_list
 
-__all__ = ["events", "generate_bandpass", "make_sample_generator"]
+__all__ = ["events", "generate_bandpass", "make_sample_generator",
+           "params_to_event_list", "SyntheticDataGenerator", "RawPatchDataset"]

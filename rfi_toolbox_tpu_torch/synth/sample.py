@@ -1,8 +1,8 @@
 """Synthetic waterfall batches on the card.
 
 Counterpart of ``rfi_toolbox_tpu/synth/sample.py`` (``generate_bandpass``,
-``make_sample_generator``; ``make_instance_sample_generator`` is not
-ported yet). Where the JAX package ``vmap``s one sample over keys, the
+``make_sample_generator``, ``params_to_event_list``;
+``make_instance_sample_generator`` is not ported yet). Where the JAX package ``vmap``s one sample over keys, the
 port draws a whole batch on the device in one call: the separable event
 stack becomes two batched matrix products, the sweeps a loop over their
 few events. Laws, units (RFI amplitudes in mJy, drawn in Jy x 1000) and
@@ -10,12 +10,13 @@ the per-polarisation rules are the reference's; the random stream is a
 ``torch.Generator``'s.
 """
 
+import numpy as np
 import torch
 
 from ..utils.device import resolve_device
 from . import events as E
 
-__all__ = ["make_sample_generator", "generate_bandpass"]
+__all__ = ["make_sample_generator", "generate_bandpass", "params_to_event_list"]
 
 
 def _as_range(value):
@@ -173,3 +174,43 @@ def make_sample_generator(num_channels, num_times, noise_level=1.0,
         return waterfall, torch.stack(masks, dim=1), params
 
     return sample_fn
+
+
+def params_to_event_list(params):
+    """Host side: a params dict of ``sample_fn`` (event type -> field ->
+    (batch, max events) tensor, ``_count`` (batch,)), or of one sample
+    (no batch axis), as the reference's per-event dict list, valid events
+    only: one list a sample for a batch. Types and fields are taken in
+    sorted order, as the JAX package's pytree walk takes them; floating
+    fields become floats, the rest ints. Fields with more than one value
+    an event (the bursts' sub-burst times and widths, which the JAX
+    package's params do not carry) are left out. Numpy arrays are taken
+    too."""
+    params = {t: {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                      else np.asarray(v)) for k, v in sorted(fields.items())}
+              for t, fields in sorted(params.items())}
+    sample0 = next(iter(params.values()))["_count"]
+    per_event = np.ndim(sample0) + 1  # dims of a field with one value an event
+
+    def one_sample(p):
+        out = []
+        for rfi_type, fields in p.items():
+            count = int(fields["_count"])
+            keys = [k for k in fields if not k.startswith("_")]
+            for e in range(count):
+                entry = {"type": rfi_type}
+                for k in keys:
+                    v = fields[k][e]
+                    entry[k] = (float(v) if np.issubdtype(np.asarray(v).dtype, np.floating)
+                                else int(v))
+                out.append(entry)
+        return out
+
+    params = {t: {k: v for k, v in fields.items()
+                  if k.startswith("_") or np.ndim(v) == per_event}
+              for t, fields in params.items()}
+    if np.ndim(sample0) == 0:
+        return one_sample(params)
+    return [one_sample({t: {k: v[i] for k, v in fields.items()}
+                        for t, fields in params.items()})
+            for i in range(np.shape(sample0)[0])]

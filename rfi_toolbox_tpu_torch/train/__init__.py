@@ -1,6 +1,8 @@
-"""Training: losses, the optimiser state, the train steps and ``Trainer``."""
+"""Training: losses, the optimiser state, the train steps, ``Trainer``
+and the raw-patch ``RawPatchTrainer``."""
 
 from .losses import bce_dice_loss, bce_with_logits_loss, dice_loss
+from .raw_patches import RawPatchTrainer, augment_batch, make_raw_patch_step
 from .trainer import (
     Trainer,
     TrainState,
@@ -24,4 +26,7 @@ __all__ = [
     "bce_dice_loss",
     "bce_with_logits_loss",
     "dice_loss",
+    "RawPatchTrainer",
+    "augment_batch",
+    "make_raw_patch_step",
 ]

@@ -38,7 +38,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..data.batched_dataset import ArrayDataset
+from ..data.batched_dataset import ArrayDataset, StreamingDataset
 from ..evaluation.metrics import evaluate_segmentation_batch
 from ..models.convert import load_params, params_to_flax
 from ..models.unet import flax_init_
@@ -170,17 +170,23 @@ def eval_step(state, images, labels):
     return bce_dice_loss(logits, labels), torch.sigmoid(logits) > 0.5
 
 
-def _grouped(batches, k):
-    """Consecutive minibatches in lists of up to k; a change of batch
-    length flushes the current list (as the JAX ``_grouped``)."""
+def _grouped(batches, k, shape=len):
+    """Consecutive minibatches in lists of up to k; a change of
+    ``shape(batch)`` (the batch length of index arrays; the images' shape
+    of streamed (images, labels) pairs) flushes the current list, as the
+    JAX ``_grouped`` does."""
     buf = []
     for b in batches:
-        if buf and (len(buf) == k or len(b) != len(buf[0])):
+        if buf and (len(buf) == k or shape(b) != shape(buf[0])):
             yield buf
             buf = []
         buf.append(b)
     if buf:
         yield buf
+
+
+def _images_shape(batch):
+    return tuple(batch[0].shape)
 
 
 def _batch_indices(n, batch_size, rng=None, drop_remainder=True):
@@ -191,21 +197,22 @@ def _batch_indices(n, batch_size, rng=None, drop_remainder=True):
     return [idx[start:start + batch_size] for start in range(0, end, batch_size)]
 
 
-def _load_if_file(dataset):
-    """A single ``.npz`` dataset file loads in memory; batch directories
-    and streaming datasets are not ported yet."""
+def _as_stream(dataset):
+    """A directory path or :class:`StreamingDataset` -> a
+    ``StreamingDataset`` (batch files streamed with bounded host memory);
+    an ``ArrayDataset``-like -> None (the in-memory path)."""
+    if isinstance(dataset, StreamingDataset):
+        return dataset
     if isinstance(dataset, (str, Path)):
-        if Path(dataset).is_file():
-            return ArrayDataset.load_from_disk(dataset)
-        raise NotImplementedError(
-            f"{dataset}: training from a batch directory (StreamingDataset) is "
-            "not ported yet (ROADMAP.md, section 1, the rest of the training "
-            "slice); pass an ArrayDataset or a single .npz file")
-    if not hasattr(dataset, "images"):
-        raise NotImplementedError(
-            f"{type(dataset).__name__}: streaming datasets are not ported yet "
-            "(ROADMAP.md, section 1, the rest of the training slice); pass an "
-            "ArrayDataset or a single .npz file")
+        return StreamingDataset(dataset)
+    return None
+
+
+def _load_if_file(dataset):
+    """A path to a single ``.npz`` or ``.pt`` dataset file loads in
+    memory; batch directories and in-memory datasets pass through."""
+    if isinstance(dataset, (str, Path)) and Path(dataset).is_file():
+        return ArrayDataset.load_from_disk(dataset)
     return dataset
 
 
@@ -278,9 +285,23 @@ class Trainer:
 
     # -- main loop -----------------------------------------------------------
     def _tensors(self, dataset):
-        x = torch.as_tensor(dataset.images).to(self.device, torch.float32)
-        y = torch.as_tensor(dataset.labels).to(self.device, torch.float32)
+        """Images and labels of an in-memory dataset or a streamed
+        (images, labels) minibatch as float32 tensors on the device."""
+        images, labels = (dataset.images, dataset.labels) if hasattr(
+            dataset, "images") else dataset
+        x = torch.as_tensor(images).to(self.device, torch.float32)
+        y = torch.as_tensor(labels).to(self.device, torch.float32)
         return x, y
+
+    def _train_group(self, images, labels):
+        """S minibatches stacked, images (S, B, H, W, C) and labels (S, B,
+        H, W) on the device: :func:`train_steps`, or :func:`train_step` for
+        S = 1; returns the S losses."""
+        if images.shape[0] > 1:
+            self.state, losses = train_steps(self.state, images, labels)
+            return list(losses)
+        self.state, loss = train_step(self.state, images[0], labels[0])
+        return [loss]
 
     def fit(self, train_dataset, val_dataset=None, num_epochs=10, batch_size=8,
             log_every=50, resume_from=None, fused_steps=8):
@@ -288,8 +309,12 @@ class Trainer:
         'final_checkpoint', 'history', 'epochs_run'}`` as the JAX ``fit``.
 
         Datasets are ``ArrayDataset``-likes (images (N, H, W, C), labels
-        (N, H, W); numpy or tensors) or single ``.npz`` files; they are
-        moved to the device once. Each epoch shuffles by
+        (N, H, W); numpy or tensors) or single ``.npz`` / ``.pt`` files,
+        moved to the device once; or ``BatchWriter`` directories (or
+        :class:`StreamingDataset` objects), streamed file by file with bounded
+        host memory, each minibatch moved to the device as it arrives (the
+        JAX ``StreamingDataset.iter_epoch`` minibatches, the same for the
+        same rng). Each epoch shuffles by
         ``np.random.default_rng((seed, epoch))`` and drops the last
         partial batch, so a resumed run replays the uninterrupted run's
         order. Groups of up to ``fused_steps`` minibatches go to
@@ -298,10 +323,16 @@ class Trainer:
         there.
         """
         del log_every
-        images, labels = self._tensors(_load_if_file(train_dataset))
-        val = None
+        train_dataset = _load_if_file(train_dataset)
+        train_stream = _as_stream(train_dataset)
+        if train_stream is None:
+            images, labels = self._tensors(train_dataset)
+        val = val_stream = None
         if val_dataset is not None:
-            val = self._tensors(_load_if_file(val_dataset))
+            val_dataset = _load_if_file(val_dataset)
+            val_stream = _as_stream(val_dataset)
+            if val_stream is None:
+                val = self._tensors(val_dataset)
 
         start_epoch = 0
         if resume_from == "auto":
@@ -317,27 +348,30 @@ class Trainer:
         for epoch in range(start_epoch, num_epochs):
             t0 = time.perf_counter()
             rng = np.random.default_rng((self.seed, epoch))
+            k = max(1, int(fused_steps))
             losses = []
-            for group in _grouped(_batch_indices(len(images), batch_size, rng),
-                                  max(1, int(fused_steps))):
-                idx = torch.as_tensor(np.stack(group), device=self.device)
-                if len(group) > 1:
-                    self.state, step_losses = train_steps(self.state, images[idx],
-                                                          labels[idx])
-                    losses.extend(step_losses)
-                else:
-                    self.state, loss = train_step(self.state, images[idx[0]],
-                                                  labels[idx[0]])
-                    losses.append(loss)
+            if train_stream is not None:
+                batches = (self._tensors(b) for b in train_stream.iter_epoch(batch_size, rng))
+                for group in _grouped(batches, k, _images_shape):
+                    losses.extend(self._train_group(torch.stack([b[0] for b in group]),
+                                                    torch.stack([b[1] for b in group])))
+            else:
+                for group in _grouped(_batch_indices(len(images), batch_size, rng), k):
+                    idx = torch.as_tensor(np.stack(group), device=self.device)
+                    losses.extend(self._train_group(images[idx], labels[idx]))
             train_loss = float(torch.stack(losses).mean())
             record = {"epoch": epoch + 1, "train_loss": train_loss,
                       "seconds": time.perf_counter() - t0}
 
-            if val is not None:
+            if val_dataset is not None:
                 val_losses, metrics = [], []
-                for sel in _batch_indices(len(val[0]), batch_size):
-                    sel = torch.as_tensor(sel, device=self.device)
-                    bi, bl = val[0][sel], val[1][sel]
+                if val_stream is not None:
+                    val_batches = (self._tensors(b) for b in val_stream.iter_epoch(batch_size))
+                else:
+                    val_batches = ((val[0][sel], val[1][sel]) for sel in (
+                        torch.as_tensor(s, device=self.device)
+                        for s in _batch_indices(len(val[0]), batch_size)))
+                for bi, bl in val_batches:
                     loss, preds = eval_step(self.state, bi, bl)
                     val_losses.append(loss)
                     m = evaluate_segmentation_batch(preds, bl > 0.5)

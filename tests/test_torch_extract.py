@@ -1,8 +1,7 @@
 """Port parity: torch models of the passes of K2, K1 and K4 on the card
 (``fused_extract_channel_planes_model``, ``fused_gather_extract_model`` and
-``fused_extract_channels_model`` in
-``rfi_toolbox_tpu_torch/ops/fused_channels.py``: each patch's rows split
-across a cluster of 4 CTAs with halo rows from the neighbours, each plane's
+``fused_extract_channels_model`` in ``tests/torch_kernel_models.py``: each
+patch's rows split across a cluster of 4 CTAs with halo rows from the neighbours, each plane's
 min and max reduced across the 4 parts, divisions folded into reciprocals
 and FMAs, K1's outputs found per base patch by a scan of ``base_idx``, K4's
 channels interleaved as (N, H, W, 3)) against the plain versions and the
@@ -25,6 +24,8 @@ from rfi_toolbox_tpu.ops import fused_channels as JK
 from rfi_toolbox_tpu.preprocess import pipeline as JP
 from rfi_toolbox_tpu_torch.ops import fused_channels as F
 from rfi_toolbox_tpu_torch.preprocess import pipeline as P
+
+import torch_kernel_models as M
 
 TOL = 2e-5
 
@@ -78,7 +79,7 @@ def _jax_planes(x, reference):
 def test_channel_planes_model(case):
     make, reference = CASES[case]
     x = make(np.random.default_rng(10))
-    got = F.fused_extract_channel_planes_model(_t(x))
+    got = M.fused_extract_channel_planes_model(_t(x))
     plain = F.fused_extract_channel_planes_plain(_t(x))
     assert [tuple(g.shape) for g in got] == [tuple(p.shape) for p in plain]
     for g, p in zip(got, plain):
@@ -95,7 +96,7 @@ def test_channels_model(case):
     real input and NaN pixels (``CASES``)."""
     make, reference = CASES[case]
     x = make(np.random.default_rng(14))
-    got = F.fused_extract_channels_model(_t(x))
+    got = M.fused_extract_channels_model(_t(x))
     plain = F.fused_extract_channels_plain(_t(x))
     assert got.shape == plain.shape == (*x.shape, 3)
     _close(got, plain)
@@ -115,7 +116,7 @@ def _indices(rng, pattern, m):
     if pattern == "unselected bases":  # bases 1 and m-1 never selected
         return np.array([0, 2, 0, 2, 2]) % m, np.array([0, 1, 2, 0, 0])
     if pattern == "one base, 2 lists":  # more outputs of a base than a list holds
-        n = F.LIST_CAP + 9
+        n = M.LIST_CAP + 9
         base = np.concatenate([np.zeros(n, int), [m - 1, 0]])
         order = rng.permutation(base.size)
         return base[order], rng.integers(0, 3, base.size)
@@ -130,7 +131,7 @@ def test_gather_extract_model(case, pattern):
     rng = np.random.default_rng(11)
     x = make(rng)
     base_idx, pidx = (a.astype(np.int32) for a in _indices(rng, pattern, x.shape[0]))
-    got = F.fused_gather_extract_model(_t(x), _t(base_idx), _t(pidx))
+    got = M.fused_gather_extract_model(_t(x), _t(base_idx), _t(pidx))
     plain = F.fused_gather_extract_plain(_t(x), _t(base_idx), _t(pidx))
     for g, p in zip(got, plain):
         assert g.shape == (base_idx.size, *x.shape[1:])
@@ -154,7 +155,7 @@ def test_gather_extract_model_on_the_static_selection():
     virtual = rng.permutation(32)[:30]
     base_idx = (virtual % 8).astype(np.int32)
     pidx = np.array([0, 1, 0, 2], np.int32)[virtual // 8]
-    got = F.fused_gather_extract_model(_t(x), _t(base_idx), _t(pidx))
+    got = M.fused_gather_extract_model(_t(x), _t(base_idx), _t(pidx))
     want = JK.fused_gather_extract(jnp.asarray(x), jnp.asarray(base_idx),
                                    jnp.asarray(pidx), interpret=True)
     for g, w in zip(got, want):
@@ -170,7 +171,7 @@ def test_gather_extract_model_on_the_static_selection():
 ])
 def test_row_parts(h, parts):
     """Each CTA of a cluster owns ceil(h / 4) rows; the rows tile [0, h)."""
-    assert F._row_parts(h) == parts
+    assert M._row_parts(h) == parts
 
 
 def test_float32_sqrt_equals_float64_sqrt_rounded_on_1_2():
@@ -204,3 +205,100 @@ def test_magnitude_with_float32_root_bit_equal():
     nan = np.isnan(plain)
     np.testing.assert_array_equal(np.isnan(kernel), nan)
     np.testing.assert_array_equal(kernel[~nan].view(np.uint32), plain[~nan].view(np.uint32))
+
+
+# Patches above 128 x 128 (the strip kernel, csrc/extract_strips.cu) and
+# K3's 32 x 32 squares above 128 (csrc/plane_gather.cu).
+LARGE = {
+    "129x130": (lambda rng: _complex(rng, 2, 129, 130), "pipeline"),
+    "256x256": (lambda rng: _complex(rng, 2, 256, 256), "kernel"),
+    "1000x1024": (lambda rng: _complex(rng, 1, 1000, 1024), "pipeline"),
+    "33x1024 real": (lambda rng: rng.lognormal(0, 1, (2, 33, 1024)).astype(np.float32),
+                     "pipeline"),
+    "NaN 150x140": (lambda rng: _with_nan(rng, 3, 150, 140), "pipeline"),
+    "constant 144x144": (lambda rng: np.full((2, 144, 144), 2 + 1j, np.complex64), None),
+}
+
+
+@pytest.mark.parametrize("case", list(LARGE))
+def test_strips_model_channels(case):
+    """K4's strip model against its plain version, and against the Pallas
+    K4 (interpret mode, 256 x 256) or the JAX reference pipeline."""
+    make, reference = LARGE[case]
+    x = make(np.random.default_rng(15))
+    got = M.fused_extract_strips_model(_t(x), "K4")
+    plain = F.fused_extract_channels_plain(_t(x))
+    assert got.shape == plain.shape == (*x.shape, 3)
+    _close(got, plain)
+    if reference == "kernel":
+        _close(got, JK.fused_extract_channels(jnp.asarray(x), interpret=True))
+    if reference:
+        _close(plain, JP.imagenet_normalize(JP.extract_channels(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("case", list(LARGE))
+def test_strips_model_planes(case):
+    make, reference = LARGE[case]
+    x = make(np.random.default_rng(16))
+    got = M.fused_extract_strips_model(_t(x), "K2")
+    plain = F.fused_extract_channel_planes_plain(_t(x))
+    assert [tuple(g.shape) for g in got] == [tuple(p.shape) for p in plain]
+    for g, p in zip(got, plain):
+        _close(g, p)
+    if reference:
+        for p, j in zip(plain, JP.extract_channel_planes(jnp.asarray(x))):
+            _close(p, j)
+
+
+@pytest.mark.parametrize("n, side", [(2, 256), (1, 1024)])
+def test_plain_extraction_matches_jax_at_large_patches(n, side):
+    """The plain versions the strip kernel is held to, against the JAX
+    pipeline at 256 x 256 and 1024 x 1024, and against the Pallas K4 and
+    K2 (interpret mode) at 256 x 256."""
+    x = _complex(np.random.default_rng(17), n, side, side)
+    x[:, side // 3: side // 3 + 4] *= 1e4  # a bright stripe
+    plain = F.fused_extract_channels_plain(_t(x))
+    _close(plain, JP.imagenet_normalize(JP.extract_channels(jnp.asarray(x))))
+    planes = F.fused_extract_channel_planes_plain(_t(x))
+    for p, j in zip(planes, JP.extract_channel_planes(jnp.asarray(x))):
+        _close(p, j)
+    if side == 256:
+        _close(plain, JK.fused_extract_channels(jnp.asarray(x), interpret=True))
+        for p, j in zip(planes, JK.fused_extract_channel_planes(jnp.asarray(x),
+                                                                 interpret=True)):
+            _close(p, j)
+
+
+def test_order_keys_preserve_order():
+    """The strip kernel's integer keys order float32 values as floats do
+    (-inf < negatives < -0.0 < +0.0 < positives < +inf) and map back."""
+    v = np.array([-np.inf, -3e38, -1.5, -1e-40, -0.0, 0.0, 1e-40, 2.0, 3e38, np.inf],
+                 np.float32)
+    keys = M._order_key(_t(v))
+    assert bool((keys[1:] > keys[:-1]).all())
+    back = M._key_value(keys).numpy()
+    np.testing.assert_array_equal(back.view(np.uint32), v.view(np.uint32))
+
+
+@pytest.mark.parametrize("h, w", [(160, 160), (33, 33), (69, 69), (129, 140), (40, 200)])
+def test_gather_squares_model(h, w):
+    """K3's 32 x 32 squares, bit-equal to the plain version: all four
+    variants on square tiles (ragged last squares), variants 0 and 1 on
+    rectangular ones (K1 above 128 x 128 gathers with variant 0)."""
+    rng = np.random.default_rng(18)
+    planes = F.fused_extract_channel_planes_plain(_t(_complex(rng, 3, h, w)))
+    k = 9
+    base_idx = _t(rng.integers(0, 3, k))
+    pidx = _t(rng.integers(0, 3, k))
+    variant = _t(rng.integers(0, 4 if h == w else 2, k))
+    if h == w:
+        variant[:4] = torch.arange(4)
+    got = M.fused_plane_gather_transform_model(planes, base_idx, pidx, variant)
+    if h == w:
+        want = F.fused_plane_gather_transform_plain(planes, base_idx, pidx, variant)
+    else:  # the flip of the gathered planes
+        gathered = F._gather_planes(planes, base_idx, pidx)
+        flip = ((variant == 1)[:, None, None])
+        want = tuple(torch.where(flip, g.flip(-2), g) for g in gathered)
+    for g, wnt in zip(got, want):
+        assert torch.equal(g, wnt)

@@ -35,7 +35,8 @@ def test_import_leaves_jax_out():
         "rfi_toolbox_tpu_torch.preprocess.preprocessor, rfi_toolbox_tpu_torch.models, "
         "rfi_toolbox_tpu_torch.ops.conv3x3, rfi_toolbox_tpu_torch.ops.fused_doubleconv, "
         "rfi_toolbox_tpu_torch.train.trainer, rfi_toolbox_tpu_torch.models.convert, "
-        "rfi_toolbox_tpu_torch.data.batched_dataset\n"
+        "rfi_toolbox_tpu_torch.data.batched_dataset, rfi_toolbox_tpu_torch.native, "
+        "rfi_toolbox_tpu_torch.synth.generator, rfi_toolbox_tpu_torch.train.raw_patches\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -68,7 +69,7 @@ def test_kernel_sources_are_plain_c_interface():
     assert {p.name for p in sources} >= {"mad_flags.cu", "channel_planes.cu",
                                          "plane_gather.cu", "conv3x3.cu",
                                          "conv3x3_mma.cuh", "mma_tf32.cuh",
-                                         "double_conv_gn.cu"}
+                                         "double_conv_gn.cu", "extract_strips.cu"}
     assert not (PORT / "ops" / "csrc" / "conv3x3_tile.cuh").exists()  # K6a's FMA tile
     # K4 is an instance of K1's and K2's cluster kernel
     assert not (PORT / "ops" / "csrc" / "fused_channels.cu").exists()

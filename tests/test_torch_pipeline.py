@@ -62,6 +62,20 @@ def test_unpatchify_matches_jax(rng):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("shape,patch,step", [((256, 256), (128, 128), 128),
+                                              ((64, 64), (32, 32), 16),
+                                              ((200, 150), (64, 64), 64),
+                                              ((100, 90), (32, 48), 24)])
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["numpy", "tensor"])
+def test_grid_patchify_matches_jax(rng, shape, patch, step, as_tensor):
+    a = rng.random(shape).astype(np.float32)
+    want = np.asarray(JP.patchify(a, patch, step))
+    got = TP.patchify(torch.from_numpy(a) if as_tensor else a, patch, step)
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_magnitude_matches_jax_bitwise(rng):
     """The scaled hypot reproduces jnp.abs bit for bit (normal floats,
     zeros, infinities and NaNs), which is what makes the MAD flags exact."""

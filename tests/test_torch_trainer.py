@@ -1,7 +1,8 @@
 """Port parity: the UNet variants and create_model, the .npz snapshots of
 export_params/load_params, the dataset files, evaluate_segmentation_batch
-and Trainer (fit, checkpoints, predict) against the JAX package, on the
-CPU in float32.
+and Trainer (fit on in-memory datasets and on streamed batch
+directories, checkpoints, predict) against the JAX package, on the CPU
+in float32.
 
 Tolerances: logits 1e-4 (different conv summation order, as
 test_torch_models.py); snapshots bit-equal both ways; batch order equal;
@@ -20,6 +21,8 @@ import pytest
 import torch
 
 from rfi_toolbox_tpu.data import ArrayDataset as JaxArrayDataset
+from rfi_toolbox_tpu.data import BatchWriter as JaxBatchWriter
+from rfi_toolbox_tpu.data import StreamingDataset as JaxStreamingDataset
 from rfi_toolbox_tpu.evaluation import evaluate_segmentation_batch as jax_eval_batch
 from rfi_toolbox_tpu.models import UNet as FlaxUNet
 from rfi_toolbox_tpu.models import create_model as jax_create_model
@@ -27,7 +30,7 @@ from rfi_toolbox_tpu.train import Trainer as JaxTrainer
 from rfi_toolbox_tpu.train.trainer import _iter_batches as jax_iter_batches
 from rfi_toolbox_tpu.train.trainer import export_params as jax_export_params
 from rfi_toolbox_tpu.train.trainer import load_params as jax_load_params
-from rfi_toolbox_tpu_torch.data import ArrayDataset, TorchDataset
+from rfi_toolbox_tpu_torch.data import ArrayDataset, BatchWriter, StreamingDataset, TorchDataset
 from rfi_toolbox_tpu_torch.evaluation import evaluate_segmentation_batch
 from rfi_toolbox_tpu_torch.models import (
     UNet,
@@ -271,9 +274,58 @@ def test_checkpoint_resume_equals_uninterrupted(tmp_path):
 
 
 def test_fit_reads_npz_and_refuses_directories(tmp_path, rng):
+    """``fit`` takes a single ``.npz`` or reference-format ``.pt`` file and,
+    since batch directories are streamed, a ``BatchWriter`` directory (it
+    refused directories before ``StreamingDataset`` was ported; the name is
+    kept)."""
     images, labels = _toy(rng, 4)
     path = ArrayDataset(images, labels).save_to_disk(tmp_path / "train.npz")
-    trainer = Trainer(UNet(init_features=2, depth=2), device="cpu")
-    assert trainer.fit(str(path), num_epochs=1, batch_size=2)["epochs_run"] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.fit(tmp_path, num_epochs=1, batch_size=2)
+    torch.save({"images": torch.from_numpy(images), "labels": torch.from_numpy(labels)},
+               tmp_path / "train.pt")
+    writer = BatchWriter(tmp_path / "batches", samples_per_batch=3)
+    writer.add_batch(ArrayDataset(images, labels))
+    writer.finalize()
+    for source in (str(path), tmp_path / "train.pt", tmp_path / "batches"):
+        trainer = Trainer(UNet(init_features=2, depth=2), device="cpu")
+        result = trainer.fit(source, source, num_epochs=1, batch_size=2)
+        assert result["epochs_run"] == 1 and trainer.state.step == 2, source
+        assert np.isfinite(result["history"][0]["val_loss"]), source
+
+
+@functools.cache
+def _jax_fit_directories(root):
+    """One epoch of the JAX Trainer.fit over BatchWriter directories (16
+    training images in files of 6, 6 and 4; 8 validation images in files
+    of 5 and 3), batch 4, two steps fused; returns the initial variables
+    and the result."""
+    rng = np.random.default_rng(22)
+    for name, (images, labels), per_file in (("train", _toy(rng, 16), 6),
+                                             ("val", _toy(rng, 8), 5)):
+        writer = JaxBatchWriter(root / name, samples_per_batch=per_file)
+        writer.add_batch(JaxArrayDataset(images, labels))
+        writer.finalize()
+    trainer = JaxTrainer(FlaxUNet(init_features=FEATURES), seed=5)
+    trainer.state = trainer._init_state((HW, HW, 3))
+    start = jax.device_get((trainer.state.params, trainer.state.batch_stats))
+    result = trainer.fit(str(root / "train"), JaxStreamingDataset(root / "val"),
+                         num_epochs=1, batch_size=4, fused_steps=2)
+    return start, result
+
+
+def test_fit_on_batch_directories_matches_jax(tmp_path_factory):
+    """Both trainers stream the same directories (train through the 3-file
+    shuffle pool, val in order): the same minibatches, so the losses agree
+    as ``test_fit_matches_jax``'s do."""
+    root = tmp_path_factory.mktemp("batches")
+    start, want = _jax_fit_directories(root)
+    trainer = _port_trainer(start)
+    stream = StreamingDataset(root / "train")
+    got = trainer.fit(stream, str(root / "val"), num_epochs=1, batch_size=4,
+                      fused_steps=2)
+    assert trainer.state.step == 4 and stream.max_resident_files <= 3
+    g, w = got["history"][0], want["history"][0]
+    assert set(g) == set(w)
+    for key in ("train_loss", "val_loss"):
+        assert abs(g[key] - w[key]) <= 1e-4 * abs(w[key]), key
+    for key in ("val_iou", "val_precision", "val_recall", "val_f1", "val_dice"):
+        assert abs(g[key] - w[key]) <= 1e-3, key

@@ -1,0 +1,285 @@
+"""Torch models of the passes of the port's extraction kernels, for the
+tests: each reproduces a kernel's order of work and float32 arithmetic in
+plain torch, so that the CPU tests can hold that arithmetic against the
+plain versions and the JAX package where the kernels themselves cannot run.
+
+- the cluster kernel (``rfi_toolbox_tpu_torch/ops/csrc/channel_planes.cu``)
+  of K2, K1 and K4: the 4-CTA row split with its halo rows, the min and max
+  reduced across the parts, the reciprocal-and-FMA arithmetic, K1's outputs
+  grouped by base patch, K4's interleaved channels;
+- the strip kernel (``csrc/extract_strips.cu``) of K4 and K2 above
+  128 x 128: the tiles with their halo row and column, the min and max
+  combined as order-preserving integer keys;
+- K3's 32 x 32 squares (``csrc/plane_gather.cu``).
+
+No path of the package runs these.
+"""
+
+import numpy as np
+import torch
+
+from rfi_toolbox_tpu_torch.ops.fused_channels import _gather_planes
+from rfi_toolbox_tpu_torch.preprocess import pipeline as P
+
+CLUSTER = 4  # CTAs that split a patch's rows in K1, K2, K4 (csrc/channel_planes.cu)
+LIST_CAP = 64  # K1's outputs of one base patch listed at a time (kListCap in csrc/)
+STRIP_ROWS, STRIP_COLS = 16, 128  # a strip kernel tile (kTileRows, kTileCols)
+GATHER_TILE = 32  # side of K3's squares above GATHER_MAX_SIDE (kTile)
+
+# The kernels' folded affines (csrc/channel_planes.cu), in float32 as nvcc
+# folds the constant expressions.
+_F = np.float32
+_AMP_SCALE = _F(1) / _F(P.LOG_MAX - P.LOG_MIN)
+_AMP_SHIFT = -_F(P.LOG_MIN) / _F(P.LOG_MAX - P.LOG_MIN)
+_MEAN, _STD = P.IMAGENET_MEAN, P.IMAGENET_STD
+_INV_STD1 = _F(1) / _STD[1]
+_SHIFT = -_MEAN / _STD  # affine(0) of each plane
+_PHASE_SCALE = _F(1) / (_F(2 * np.pi) * _STD[2])
+_PHASE_SHIFT = (_F(0.5) - _MEAN[2]) / _STD[2]
+
+
+def _fma(a, b, c):
+    """fmaf(a, b, c) of float32 tensors, scalars or both: the product is
+    exact in float64 and the sum rounded to float64, then to float32 (a
+    true FMA can differ by one ulp, in rare ties)."""
+    return (torch.as_tensor(a).double() * torch.as_tensor(b).double()
+            + torch.as_tensor(c).double()).float()
+
+
+def _row_parts(h):
+    """[r0, r1) of the rows of each CTA of a cluster: ceil(h / 4) rows
+    each, the last ones empty where h < 4 or h is not a multiple."""
+    rows = -(-h // CLUSTER)
+    return [(min(h, r * rows), min(h, (r + 1) * rows)) for r in range(CLUSTER)]
+
+
+def _nan_skipping_min_max(x):
+    """Per-patch min and max of (n, rows, w), NaN skipped (fminf, fmaxf);
+    +-inf for a patch of no valid pixel."""
+    nan = torch.isnan(x)
+    return (torch.where(nan, float("inf"), x).amin(dim=(-2, -1)),
+            torch.where(nan, float("-inf"), x).amax(dim=(-2, -1)))
+
+
+def _norm(x, lo, hi, std, shift):
+    """(x - lo) / span and the affine as the kernels compute them:
+    (x - lo) * (1 / (span * std)) + shift in one FMA, ``shift`` where
+    span is not positive. lo, hi: (n,)."""
+    span = (hi - lo)[:, None, None]
+    pos = span > 0
+    scale = torch.where(pos, 1.0 / torch.where(pos, span * std, 1.0), 0.0)
+    return torch.where(pos, _fma(x - lo[:, None, None], scale, shift),
+                       torch.full_like(x, float(shift)))
+
+
+def _cluster_planes(patches, planes=(0, 1, 2)):
+    """The model of one cluster per patch of (n, h, w) patches: the
+    gradient planes in ``planes`` (a dict), the amplitude and phase
+    planes (n, h, w)."""
+    n, h, w = patches.shape
+    la = torch.log10(P.magnitude(patches) + 1e-10)
+    parts = [(r0, r1) for r0, r1 in _row_parts(h) if r1 > r0]
+    # pass 2: each part's gradients from its rows and its two halo rows
+    grads, lows, highs = [], [], []
+    for r0, r1 in parts:
+        own = la[:, r0:r1]
+        # the halo rows: the last row of the part above, the first of the
+        # part below (zeros at the patch's edge, where no difference is taken)
+        halo = torch.zeros_like(la[:, :1])
+        tile = torch.cat([la[:, r0 - 1:r0] if r0 > 0 else halo, own,
+                          la[:, r1:r1 + 1] if r1 < h else halo], dim=1)
+        row = torch.arange(r0, r1, device=la.device)[None, :, None]
+        td_fwd = torch.where(row > 0, own - tile[:, :-2], 0.0)
+        td_down = torch.where(row < h - 1, tile[:, 2:] - own, 0.0)
+        zero = torch.zeros_like(own[..., :1])
+        fd_fwd = torch.cat([zero, own[..., 1:] - own[..., :-1]], dim=-1)
+        fd_down = torch.cat([own[..., 1:] - own[..., :-1], zero], dim=-1)
+        g = {0: torch.sqrt(td_fwd * td_fwd + fd_fwd * fd_fwd),
+             1: torch.sqrt(td_down * td_down + fd_fwd * fd_fwd),
+             2: torch.sqrt(td_fwd * td_fwd + fd_down * fd_down)}
+        grads.append({v: g[v] for v in planes})
+        lows.append({v: _nan_skipping_min_max(g[v])[0] for v in planes})
+        highs.append({v: _nan_skipping_min_max(g[v])[1] for v in planes})
+    # the min and max pushed across the cluster, then pass 3
+    out = {}
+    for v in planes:
+        lo = torch.stack([part[v] for part in lows]).amin(dim=0)
+        hi = torch.stack([part[v] for part in highs]).amax(dim=0)
+        out[v] = torch.cat([_norm(part[v], lo, hi, _STD[0], _SHIFT[0])
+                            for part in grads], dim=1)
+    if patches.is_complex():
+        amp = _fma(torch.clamp(_fma(la, _AMP_SCALE, _AMP_SHIFT), 0.0, 1.0),
+                   _INV_STD1, _SHIFT[1])
+        phase = _fma(torch.atan2(patches.imag, patches.real).float(),
+                     _PHASE_SCALE, _PHASE_SHIFT)
+    else:
+        part_lo, part_hi = zip(*(_nan_skipping_min_max(la[:, r0:r1])
+                                 for r0, r1 in parts))
+        amp = _norm(la, torch.stack(part_lo).amin(dim=0),
+                    torch.stack(part_hi).amax(dim=0), _STD[1], _SHIFT[1])
+        phase = torch.full_like(la, float(-_MEAN[2] / _STD[2]))
+    return out, amp, phase
+
+
+def fused_extract_channels_model(patches):
+    """Torch model of K4's passes, on any device: K2's with the fwd/fwd
+    gradient plane only, the channels interleaved as (N, H, W, 3); the
+    same outputs as :func:`fused_extract_channels`."""
+    grads, amp, phase = _cluster_planes(patches, planes=(0,))
+    return torch.stack([grads[0], amp, phase], dim=-1)
+
+
+def fused_extract_channel_planes_model(patches):
+    """Torch model of K2's passes (see the module docstring), on any
+    device: the same outputs as :func:`fused_extract_channel_planes`."""
+    grads, amp, phase = _cluster_planes(patches)
+    return torch.stack([grads[v] for v in range(3)]), amp, phase
+
+
+def fused_gather_extract_model(patches, base_idx, pidx):
+    """Torch model of K1's passes, on any device: each base patch's
+    outputs found by a scan of ``base_idx`` in order (as each cluster of
+    the kernel finds its own); each selected base patch computed once,
+    with only the gradient planes its outputs select; each output written
+    from it. An output that no scan reaches stays NaN."""
+    m, h, w = patches.shape
+    k = base_idx.shape[0]
+    outs = tuple(torch.full((k, h, w), float("nan"), device=patches.device)
+                 for _ in range(3))
+    for b in range(m):
+        js = torch.nonzero(base_idx == b).flatten().tolist()
+        if not js:
+            continue
+        vs = [int(pidx[j]) for j in js]
+        grads, amp, phase = _cluster_planes(patches[b:b + 1], sorted(set(vs)))
+        for j, v in zip(js, vs):
+            outs[0][j], outs[1][j], outs[2][j] = grads[v][0], amp[0], phase[0]
+    return outs
+
+
+def _order_key(x):
+    """The strip kernel's order-preserving uint32 key of each float32 (as
+    int64): the bits with the sign bit set for x >= +0, all bits flipped
+    for x <= -0."""
+    bits = x.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    return torch.where(bits >= 2 ** 31, ~bits & 0xFFFFFFFF, bits | 2 ** 31)
+
+
+def _key_value(key):
+    """Inverse of :func:`_order_key`."""
+    bits = torch.where(key >= 2 ** 31, key & 0x7FFFFFFF, ~key & 0xFFFFFFFF)
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32).view(
+        torch.float32)
+
+
+def _sqrt(x):
+    """The correctly rounded float32 square root (``__fsqrt_rn``)."""
+    return torch.sqrt(x.double()).float()
+
+
+def fused_extract_strips_model(patches, kind):
+    """Torch model of the strip kernel's passes (csrc/extract_strips.cu),
+    on any device: ``kind`` "K4" returns :func:`fused_extract_channels`'
+    output, "K2" :func:`fused_extract_channel_planes`'.
+
+    Each 16 x 128 tile takes log10|x| of its pixels and of one halo row
+    and column (zero outside the patch, where no difference is taken).
+    Pass 1 reduces each tile's min and max of the squared gradients (and
+    of real input's log-amplitude), NaN skipped, and combines them into
+    the patch's as order-preserving integer keys (atomicMin, atomicMax);
+    pass 2 normalises each tile's gradient roots by the roots of the
+    patch's least and largest squares, with the reciprocal-and-FMA
+    arithmetic of the cluster kernel."""
+    planes = (0,) if kind == "K4" else (0, 1, 2)
+    n, h, w = patches.shape
+    dev = patches.device
+    la = torch.log10(P.magnitude(patches) + 1e-10)
+    halo = torch.nn.functional.pad(la, (1, 1, 1, 1))
+    rows = torch.arange(h, device=dev)[None, :, None]
+    cols = torch.arange(w, device=dev)[None, None, :]
+    tiles = [(r0, min(h, r0 + STRIP_ROWS), c0, min(w, c0 + STRIP_COLS))
+             for r0 in range(0, h, STRIP_ROWS) for c0 in range(0, w, STRIP_COLS)]
+
+    def tile_squares(r0, r1, c0, c1):
+        t = halo[:, r0:r1 + 2, c0:c1 + 2]
+        own = t[:, 1:-1, 1:-1]
+        r, c = rows[:, r0:r1], cols[..., c0:c1]
+        td_fwd = torch.where(r > 0, own - t[:, :-2, 1:-1], 0.0)
+        td_down = torch.where(r < h - 1, t[:, 2:, 1:-1] - own, 0.0)
+        fd_fwd = torch.where(c > 0, own - t[:, 1:-1, :-2], 0.0)
+        fd_down = torch.where(c < w - 1, t[:, 1:-1, 2:] - own, 0.0)
+        tf2, ff2 = td_fwd * td_fwd, fd_fwd * fd_fwd
+        g = {0: tf2 + ff2, 1: td_down * td_down + ff2, 2: tf2 + fd_down * fd_down}
+        return {v: g[v] for v in planes}, own
+
+    # pass 1: the keys of each patch's min (all ones at first) and max (0)
+    lo_key = torch.full((n, 4), 2 ** 32 - 1, dtype=torch.int64, device=dev)
+    hi_key = torch.zeros((n, 4), dtype=torch.int64, device=dev)
+    for r0, r1, c0, c1 in tiles:
+        squares, own = tile_squares(r0, r1, c0, c1)
+        if not patches.is_complex():
+            squares[3] = own
+        for s, x in squares.items():
+            lo, hi = _nan_skipping_min_max(x)
+            lo_key[:, s] = torch.minimum(lo_key[:, s], _order_key(lo))
+            hi_key[:, s] = torch.maximum(hi_key[:, s], _order_key(hi))
+    lo, hi = _key_value(lo_key), _key_value(hi_key)
+    lo[:, :3], hi[:, :3] = _sqrt(lo[:, :3]), _sqrt(hi[:, :3])
+
+    # pass 2
+    grads = {v: torch.empty((n, h, w), device=dev) for v in planes}
+    amp = torch.empty((n, h, w), device=dev)
+    for r0, r1, c0, c1 in tiles:
+        squares, own = tile_squares(r0, r1, c0, c1)
+        for v in planes:
+            grads[v][:, r0:r1, c0:c1] = _norm(_sqrt(squares[v]), lo[:, v], hi[:, v],
+                                              _STD[0], _SHIFT[0])
+        if patches.is_complex():
+            amp[:, r0:r1, c0:c1] = _fma(torch.clamp(_fma(own, _AMP_SCALE, _AMP_SHIFT),
+                                                    0.0, 1.0), _INV_STD1, _SHIFT[1])
+        else:
+            amp[:, r0:r1, c0:c1] = _norm(own, lo[:, 3], hi[:, 3], _STD[1], _SHIFT[1])
+    if patches.is_complex():
+        phase = _fma(torch.atan2(patches.imag, patches.real).float(),
+                     _PHASE_SCALE, _PHASE_SHIFT)
+    else:
+        phase = torch.full_like(la, float(-_MEAN[2] / _STD[2]))
+    if kind == "K4":
+        return torch.stack([grads[0], amp, phase], dim=-1)
+    return torch.stack([grads[v] for v in planes]), amp, phase
+
+
+def fused_plane_gather_transform_model(planes, base_idx, pidx, variant):
+    """Torch model of K3's 32 x 32 squares (csrc/plane_gather.cu, tiles
+    above ``GATHER_MAX_SIDE``, or rectangular ones with variants 0 and
+    1), on any device: each square of each output either copies the rows
+    it needs (variants 0, 1) or stages the source square that lands on it
+    in a 32 x 33 tile (variants 2, 3; square tiles). A value no square
+    writes stays NaN."""
+    gathered = _gather_planes(planes, base_idx, pidx)
+    k, h, w = gathered[1].shape
+    dev = gathered[1].device
+    t = GATHER_TILE
+    outs = tuple(torch.full((k, h, w), float("nan"), device=dev) for _ in range(3))
+    for j in range(k):
+        v = int(variant[j])
+        flip = v in (1, 3)
+        for src, out in zip((x[j] for x in gathered), (o[j] for o in outs)):
+            for r0 in range(0, h, t):
+                for c0 in range(0, w, t):
+                    r = torch.arange(r0, min(h, r0 + t), device=dev)
+                    c = torch.arange(c0, min(w, c0 + t), device=dev)
+                    if v < 2:
+                        out[r[:, None], c] = src[(h - 1 - r if flip else r)[:, None], c]
+                        continue
+                    s0 = h - r0 - t if flip else r0
+                    tile = torch.full((t, t + 1), float("nan"), device=dev)
+                    for i in range(t):
+                        sc = s0 + torch.arange(t, device=dev)
+                        ok = (sc >= 0) & (sc < h)
+                        if c0 + i < h:
+                            tile[i, :t][ok] = src[c0 + i, sc[ok]]
+                    a = r - r0
+                    out[r[:, None], c] = tile[(c - c0)[None, :],
+                                              (t - 1 - a if flip else a)[:, None]]
+    return outs
