@@ -5,8 +5,9 @@
 
 It drives the port's flagging service, its training main path, the
 train -> export -> serve loop, the file path (generator -> batch files ->
-streamed training) and the raw-patch path (``rfi_toolbox_tpu_torch``) on
-the card and fails (non-zero exit) if any phase fails:
+streamed training), the raw-patch path and the coherent 8-channel path
+(``rfi_toolbox_tpu_torch``) on the card and fails (non-zero exit) if any
+phase fails:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: one nvcc per source, all started together, and one link build
@@ -129,7 +130,34 @@ the card and fails (non-zero exit) if any phase fails:
     masks at the default patch_size=256, then RawPatchTrainer (UNet32 bf16)
     for one epoch at batch 32: K4 once a step on (32, 256, 256), finite
     losses; then ``RAW_WARM_EPOCHS`` warm epochs timed back to back for
-    patches/s.
+    patches/s;
+16. the coherent simulator: ``RFISimulator`` draws 8 samples of 4 pols x
+    1024^2 on the card and renders them with Gibbs ringing off, then on;
+    the mask must be its draws' truth (``simulator_truth``: each family's
+    amplitudes above the floor) and, rendered again on the CPU from the
+    same draws (2 samples), masks equal outside the floor band and planes
+    within 1e-5 of |field| plus 1e-6 of the pixel's summed amplitudes;
+    ms a sample and each family's masked share;
+17. physics gates on the port's own stream: (a) the seven coherent
+    snapshots at 256^2 and their ``best_threshold`` on 8 held-out batches
+    of 8 (``coherent_batch``, seeds 10000 + j) against
+    tests/test_pretrained.py's floors, TTA too where the gate has one
+    (and above the plain IoU); (b) ``unet16gn_universal.npz`` through
+    flag_waterfalls(method="model") (K4 once) on the RR planes of phase
+    16's 8 waterfalls: IoU >= 0.87;
+18. flag_waterfalls_coherent on phase 16's planes (8 baselines x 4 pols x
+    1024^2, patch 128: 512 images of 128^2 x 8) with unet24gn (GroupNorm)
+    and unet16 (BatchNorm, folded) through CompiledPredictor at batch
+    128: IoU, waterfalls/s, the images' and the predictor's ms; masks
+    equal to a CPU run on one baseline on >= 99.9% of the pixels, also
+    for a ragged 1000 x 1024 case (the statistics leave the padding out);
+19. CoherentTrainer's flagship recipe (UNet24 GroupNorm, 256^2, batch 16,
+    bf16, generation on the card): 60 steps with a checkpoint at 30,
+    losses finite and falling; a trainer restored from the checkpoint
+    repeats steps 31-60 (deterministic cuDNN) within rtol 1e-5 and atol
+    1e-6 of params and EMA; 20 steps timed for steps/s, with the sample
+    batch and the step apart; export -> CompiledPredictor.from_snapshot
+    against CoherentTrainer.load(...).evaluate(num_batches=1).
 
 Waterfalls/s is timed on the host clock over 3 windows of at least
 ``WINDOW_S`` seconds each (calls queued back to back, one synchronize at
@@ -144,8 +172,8 @@ launches, error, times and bound (K6a, K6b and K7 summed over their
 layers; the line before it lists the layers); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Budget: under
 5 minutes with the build. Writes only under build/ (the snapshot and
-checkpoints of phase 13, phase 14's batch files, some 1.8 GB, deleted at
-the end of each phase).
+checkpoints of phases 13 and 19, phase 14's batch files, some 1.8 GB,
+deleted at the end of each phase).
 """
 
 import copy
@@ -253,6 +281,83 @@ PHASE14_CUTS = {
 }
 
 
+def simulator_truth(sim, d):
+    """What the simulator's draws ``d`` say without its render.
+
+    Returns ``(masks, band, amp)``: each family's mask (pixels its events
+    reach with an amplitude above the floor: the render's rule, up to
+    |exp(i phi)| = 1 in float32); ``band``, the pixels where an event's
+    amplitude lies within ``MAG_RTOL`` relative of the floor, which that
+    rounding may tip either way; and ``amp`` (n, 4, T, F), the sum of the
+    event amplitudes that reach each pixel of each pol (through the
+    ringing kernel's |taps|), which bounds what the rounding of the
+    phases' sines and cosines and the order of the sums can move.
+    """
+    n, T, F = d["bl"].shape[0], sim.time_bins, sim.freq_bins
+    dev = d["bl"].device
+    power = torch.as_tensor(sim.power_range, device=dev)
+    floor = sim.detect_floor
+    b = torch.arange(n, device=dev)[:, None, None]
+
+    def plane(dtype=torch.float32):
+        return torch.zeros((n, T, F), dtype=dtype, device=dev)
+
+    def near(a):
+        return (a - floor).abs() <= MAG_RTOL * floor
+
+    bb = d["broadband"]
+    f = torch.arange(F, device=dev)
+    keep = ((f >= bb["start"][..., None]) & (f < (bb["start"] + bb["width"])[..., None])
+            & (torch.arange(bb["start"].shape[1], device=dev) < bb["count"][:, None])[..., None])
+    a_bb = bb["modulation"] * power[bb["power"]] * keep[:, :, None, :]
+    masks = {"broadband": (a_bb > floor).any(1)}
+    band = near(a_bb).any(1)
+    sums = {"broadband": a_bb.sum(1)}
+    del a_bb
+    nb, tb = d["narrowband"], d["bursts"]
+    for name, fam, at in (
+            ("narrowband", nb, (b, torch.arange(T, device=dev), nb["index"][..., None])),
+            ("bursts", tb, (b, tb["index"][..., None], torch.arange(F, device=dev)))):
+        a = fam["modulation"] * power[fam["power"]][..., None]
+        sums[name] = plane().index_put_(at, a, accumulate=True)
+        masks[name] = plane(torch.int32).index_put_(at, (a > floor).int(), accumulate=True) > 0
+        band |= plane(torch.int32).index_put_(at, near(a).int(), accumulate=True) > 0
+    if sim.gibbs_ringing:
+        taps = np.abs(sim._gibbs_kernel).tolist()
+        h = len(taps) // 2
+        for name, dim in (("broadband", -1), ("narrowband", -1), ("bursts", -2)):
+            x = sums[name]
+            pad = torch.nn.functional.pad(x, (h, h) if dim == -1 else (0, 0, h, h))
+            sums[name] = sum(k * pad.narrow(dim, j, x.shape[dim]) for j, k in enumerate(taps))
+    rr = sums["broadband"] + sums["narrowband"] + sums["bursts"]
+    ll = rr.clone()
+    lin, quad = d["linear"], d["quadratic"]
+    half, quarter = T // 2, T // 4
+    f_lin = torch.trunc(lin["start_f"][..., None] + lin["slope"][..., None] * torch.arange(
+        half, dtype=torch.float32, device=dev)).long() % F
+    t_lin = (lin["start_t"][..., None] + torch.arange(half, device=dev)) % T
+    t = torch.arange(quarter, device=dev)
+    f_quad = (quad["start_f"][..., None] + torch.div(
+        torch.where(quad["direction"], 1, -1)[..., None] * t ** 2, 100,
+        rounding_mode="floor")) % F
+    t_quad = (quad["start_t"][..., None] + t) % T
+    for name, fam, at, planes in (("linear", lin, (b, t_lin, f_lin), (rr, ll)),
+                                  ("quadratic", quad, (b, t_quad, f_quad), (rr,))):
+        a = power[fam["power"]]
+        for p in planes:
+            p.index_put_(at, a, accumulate=True)
+        masks[name] = plane(torch.int32).index_put_(at, (a > floor).int(), accumulate=True) > 0
+    # the cross hands add u * RR with u < 1
+    return masks, band, torch.stack([rr, rr, rr, ll], dim=1)
+
+
+def tree_to(tree, device, k):
+    """The first ``k`` samples of a nested dict of tensors, on ``device``."""
+    if isinstance(tree, dict):
+        return {key: tree_to(v, device, k) for key, v in tree.items()}
+    return tree[:k].to(device)
+
+
 def cut_config(published, cut):
     """``published`` with each section's values replaced by ``cut``'s."""
     return {section: {**values, **cut.get(section, {})} for section, values in published.items()}
@@ -266,6 +371,30 @@ K_LARGE = K_STATIC * PATCH ** 2 // LARGE ** 2  # 480 of 256^2: the pixels of 192
 FLAG_BATCH_LARGE = 32  # the predictor's fixed batch at 256^2
 RAW_PATCH, RAW_BATCH = 256, 32  # phase 15: create_raw_patches' default, batch 32
 RAW_WARM_EPOCHS = 20  # phase 15: the warm epochs timed back to back
+# Phases 16-19: the coherent 8-channel path. The simulator's waterfalls are
+# its default planes, SIDE x SIDE, N_WATERFALLS of them (8 baselines).
+MAG_RTOL = 1e-5  # simulator planes, card vs CPU (plus the rounding bound, below)
+# phase 17(a): tests/test_pretrained.py's held-out floors, (plain, TTA)
+COHERENT_GATES = {
+    "unet16_coherent8ch": (0.83, None),
+    "unet24_coherent8ch": (0.86, 0.865),
+    "unet24gn_coherent8ch": (0.925, 0.928),
+    "unet16gn_coherent8ch": (0.924, 0.926),
+    "unet32gn_coherent8ch": (0.929, 0.930),
+    "unet16gn_s2d_coherent8ch": (0.925, 0.927),
+    "unet24gn_s2d_coherent8ch": (0.926, 0.928),
+}
+HELD_OUT_KEY, GATE_BATCHES, GATE_BATCH = 10_000, 8, 8  # batch j seeded HELD_OUT_KEY + j
+UNIVERSAL = "pretrained/unet16gn_universal.npz"
+UNIVERSAL_FLOOR = 0.87  # phase 17(b); pretrained/README.md records 0.9101 on a TPU
+COHERENT_FLAGGERS = ("unet24gn_coherent8ch", "unet16_coherent8ch")  # phase 18
+CPU_PREDICT_BATCH = 32  # the CPU predictors' batch (64 images a baseline)
+RAGGED_C = 1000  # phase 18's ragged case: 1000 x 1024
+# phase 19: the flagship recipe (pretrained/README.md: unet24gn_coherent8ch),
+# bfloat16 on the card; 60 steps, a checkpoint at 30
+COHERENT_RECIPE = {"init_features": 24, "size": 256, "batch_size": 16, "norm": "group"}
+COH_STEPS, COH_CKPT, COH_TIMED = 60, 30, 20
+RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6  # tests/test_coherent_trainer.py's
 # Operations of K1's and K2's function a base pixel: the exact |z| (a
 # division, a float64 FMA, a square root: ~25), log10 (~20), atan2 (~40),
 # three gradients (~30), min/max, windows and affines (~35). A count of 60
@@ -525,8 +654,10 @@ def main():
     from rfi_toolbox_tpu_torch import ops
     from rfi_toolbox_tpu_torch.data import ArrayDataset, BatchWriter, StreamingDataset
     from rfi_toolbox_tpu_torch.evaluation import evaluate_segmentation
-    from rfi_toolbox_tpu_torch.io import flag_waterfalls
-    from rfi_toolbox_tpu_torch.models import DoubleConv, UNet
+    from rfi_toolbox_tpu_torch.evaluation import evaluate_segmentation_batch
+    from rfi_toolbox_tpu_torch.io import flag_waterfalls, flag_waterfalls_coherent
+    from rfi_toolbox_tpu_torch.io.flagging import coherent_images
+    from rfi_toolbox_tpu_torch.models import DoubleConv, UNet, load_params
     from rfi_toolbox_tpu_torch.ops import (
         _lib,
         fused_extract_channels,
@@ -538,9 +669,15 @@ def main():
     from rfi_toolbox_tpu_torch.preprocess import pipeline as P
     from rfi_toolbox_tpu_torch.preprocess.static_prep import make_static_prep_fn
     from rfi_toolbox_tpu_torch.serving import CompiledPredictor
-    from rfi_toolbox_tpu_torch.synth import SyntheticDataGenerator, make_sample_generator
+    from rfi_toolbox_tpu_torch.synth import (
+        RFISimulator,
+        SyntheticDataGenerator,
+        make_sample_generator,
+    )
     from rfi_toolbox_tpu_torch.train import (
+        CoherentTrainer,
         RawPatchTrainer,
+        coherent_batch,
         Trainer,
         bce_dice_loss,
         create_train_state,
@@ -548,6 +685,7 @@ def main():
         train_step,
         train_steps,
     )
+    from rfi_toolbox_tpu_torch.train.coherent_trainer import robust_scale, to_8ch
     from rfi_toolbox_tpu_torch.train.flops import unet_train_flops_analytic
     from rfi_toolbox_tpu_torch.utils import set_tf32
 
@@ -1714,6 +1852,207 @@ def main():
     require(all(np.isfinite(r["train_loss"]) for r in warm["history"]),
             "the raw-patch path's warm losses are not finite")
     phases["raw-patch path"] = time.perf_counter() - t
+    del raw, raw_masks, raw_pre, raw_trainer
+
+    # -- 16: the coherent simulator on the card ------------------------------------------
+    t = time.perf_counter()
+    sim = RFISimulator(SIDE, SIDE)
+    g16 = torch.Generator(device=dev).manual_seed(SEED)
+    draws = sim.draw(N_WATERFALLS, g16)
+    k_cpu = 2  # samples rendered again on the CPU
+    cpu_sim = RFISimulator(SIDE, SIDE, device="cpu")
+    cpu_draws = tree_to(draws, "cpu", k_cpu)
+    for gibbs in (False, True):
+        sim.gibbs_ringing = cpu_sim.gibbs_ringing = gibbs
+        tf16, mask16 = sim.render(draws)
+        draw_ms = cuda_ms(lambda: sim.draw(N_WATERFALLS, g16), calls=3, windows=3)
+        render_ms = cuda_ms(lambda: sim.render(draws), calls=3, windows=3)
+        fam_masks, band, amp = simulator_truth(sim, draws)
+        union = torch.stack(list(fam_masks.values())).any(0)
+        truth_diff = int(((mask16 != union) & ~band).sum())
+        cpu_tf, cpu_mask = cpu_sim.render(cpu_draws)
+        card_tf, band_cpu = tf16[:k_cpu].cpu(), band[:k_cpu].cpu()
+        mask_diff = int(((mask16[:k_cpu].cpu() != cpu_mask) & ~band_cpu).sum())
+        mag = cpu_tf.abs()
+        rel = ((card_tf.abs() - mag).abs() / mag).max()
+        err = (card_tf - cpu_tf).abs()
+        room = float((err / (MAG_RTOL * mag + 1e-6 * amp[:k_cpu].cpu())).max())
+        log(f"simulator {N_WATERFALLS} x 4 pols x {SIDE}^2, Gibbs ringing {gibbs}: "
+            f"{(draw_ms + render_ms) / N_WATERFALLS:.3f} ms a sample (draw {draw_ms:.2f} ms, "
+            f"render {render_ms:.2f} ms a batch); masked share {float(mask16.float().mean()):.4f}"
+            f", by family " + ", ".join(f"{k} {float(v.float().mean()):.4f}"
+                                        for k, v in fam_masks.items())
+            + f"; the mask against the draws' truth: {truth_diff} pixels differ outside the "
+            f"floor band ({int(band.sum())} pixels in it); card vs CPU on {k_cpu} samples: "
+            f"{mask_diff} mask pixels differ outside the band, max |d|field|| / |field| "
+            f"{float(rel):.2e}, max |d field| / (1e-5 |field| + 1e-6 S) {room:.3f}")
+        require(truth_diff == 0, "the simulator's mask is not its draws' truth")
+        require(mask_diff == 0, "the simulator's masks differ between the card and the CPU")
+        require(room <= 1.0, "the simulator's planes differ between the card and the CPU")
+        if not gibbs:  # phases 17(b) and 18 take these planes
+            coh_tf, coh_mask = tf16, mask16
+    del draws, cpu_draws, tf16, cpu_tf, card_tf, amp, band, fam_masks, union
+    phases["simulator"] = time.perf_counter() - t
+
+    # -- 17: physics gates on the port's own stream --------------------------------------
+    t = time.perf_counter()
+    gate_size = 256  # every coherent snapshot's train_size
+    gate = [coherent_batch(torch.Generator(device=dev).manual_seed(HELD_OUT_KEY + j),
+                           GATE_BATCH, gate_size) for j in range(GATE_BATCHES)]
+    gate_rows = {}
+    for name, (floor, tta_floor) in COHERENT_GATES.items():
+        path = f"pretrained/{name}.npz"
+        meta = load_params(path)[2]
+        require(meta["train_size"] == [gate_size, gate_size] and meta["in_channels"] == 8,
+                f"{name}: not an 8-channel snapshot of train_size {gate_size}")
+        pred = CompiledPredictor.from_snapshot(path, batch_size=GATE_BATCH,
+                                               input_shape=(gate_size, gate_size, 8))
+
+        def probs(x):
+            return torch.sigmoid(pred.logits(x))
+
+        plain, tta = [], []
+        for x, gt in gate:
+            p = probs(x)
+            plain.append(evaluate_segmentation(p > pred.threshold, gt)["iou"])
+            p = (p + probs(x.flip(1)).flip(1) + probs(x.flip(2)).flip(2)
+                 + probs(x.flip(1, 2)).flip(1, 2)) / 4
+            tta.append(evaluate_segmentation(p > pred.threshold, gt)["iou"])
+        iou, iou_tta = float(np.mean(plain)), float(np.mean(tta))
+        gate_rows[name] = (iou, iou_tta)
+        log(f"gate {name} (threshold {pred.threshold:g}, folded {pred.folded}): held-out IoU "
+            f"{iou:.4f} (floor {floor}), TTA {iou_tta:.4f}"
+            + (f" (floor {tta_floor})" if tta_floor is not None else " (no TTA gate)")
+            + f"; {GATE_BATCHES} batches of {GATE_BATCH} at {gate_size}^2")
+        require(iou >= floor, f"{name}: held-out IoU {iou:.4f} under its floor {floor}")
+        if tta_floor is not None:
+            require(iou_tta >= tta_floor and iou_tta > iou,
+                    f"{name}: TTA IoU {iou_tta:.4f} under its floor {tta_floor} or the plain IoU")
+    del gate
+    upred = CompiledPredictor.from_snapshot(UNIVERSAL, batch_size=BATCH)
+    rr = coh_tf[:, 0].contiguous()  # the RR planes
+    flag_waterfalls(rr, method="model", predictor=upred)  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    uflags = flag_waterfalls(rr, method="model", predictor=upred)
+    torch.cuda.synchronize()
+    universal_launches = fused_extract_channels.launches
+    m = evaluate_segmentation(uflags, coh_mask)
+    log(f"gate {UNIVERSAL.split('/')[-1]} through flag_waterfalls(method='model') on the RR "
+        f"planes of {N_WATERFALLS} simulator waterfalls of {SIDE}^2: IoU {m['iou']:.4f} "
+        f"(floor {UNIVERSAL_FLOOR}), P {m['precision']:.4f} R {m['recall']:.4f}; "
+        f"K4 launches {universal_launches}")
+    require(universal_launches == 1, "the universal snapshot's flagging did not launch K4 once")
+    require(m["iou"] >= UNIVERSAL_FLOOR, "the universal snapshot misses its simulator gate")
+    del rr, uflags, upred
+    phases["coherent gates"] = time.perf_counter() - t
+
+    # -- 18: flag_waterfalls_coherent at full width --------------------------------------
+    t = time.perf_counter()
+    vis4 = coh_tf  # (8 baselines, 4 pols, SIDE, SIDE)
+    ragged = vis4[:, :, :RAGGED_C].contiguous()
+    images = coherent_images(vis4, PATCH)
+    images_ms = cuda_ms(lambda: coherent_images(vis4, PATCH), calls=5, windows=3)
+    for name in COHERENT_FLAGGERS:
+        path = f"pretrained/{name}.npz"
+        pred = CompiledPredictor.from_snapshot(path, batch_size=BATCH)
+        flag_waterfalls_coherent(vis4, pred)  # warm-up
+        rate, lo, hi, calls, flags = calls_per_s(lambda: flag_waterfalls_coherent(vis4, pred))
+        require(flags.shape == coh_mask.shape and flags.dtype == torch.bool,
+                "coherent flags: shape or dtype")
+        m = evaluate_segmentation(flags, coh_mask)
+        pred_ms = cuda_ms(lambda: pred(images), calls=3, windows=3)
+        cpu_pred = CompiledPredictor.from_snapshot(path, batch_size=CPU_PREDICT_BATCH,
+                                                   device="cpu")
+        agree = float((flags[:1].cpu() == flag_waterfalls_coherent(
+            vis4[:1].cpu(), cpu_pred, device="cpu")).double().mean())
+        rflags = flag_waterfalls_coherent(ragged, pred)
+        r_agree = float((rflags[:1].cpu() == flag_waterfalls_coherent(
+            ragged[:1].cpu(), cpu_pred, device="cpu")).double().mean())
+        rm = evaluate_segmentation(rflags, coh_mask[:, :RAGGED_C])
+        log(f"flag_waterfalls_coherent {name} ({len(images)} images of {PATCH}^2 x 8, batch "
+            f"{BATCH}, folded {pred.folded}): IoU {m['iou']:.4f} P {m['precision']:.4f} R "
+            f"{m['recall']:.4f}; waterfalls/s (one pol's plane each) on {kind}: "
+            f"{rate_text(4 * N_WATERFALLS * rate, 4 * N_WATERFALLS * lo, 4 * N_WATERFALLS * hi)}"
+            f" ({N_WATERFALLS * rate:.4g} baselines/s) in "
+            f"{calls} calls, {1e3 / rate:.2f} ms a call: images {images_ms:.3f} ms, predictor "
+            f"{pred_ms:.2f} ms; the card's masks equal the CPU's on one baseline on {agree:.6f} "
+            f"of the pixels; ragged {RAGGED_C} x {SIDE}: IoU {rm['iou']:.4f}, against the CPU "
+            f"{r_agree:.6f} (tol {MASK_AGREE:g})")
+        require(agree >= MASK_AGREE and r_agree >= MASK_AGREE,
+                f"{name}: coherent flags differ between the card and the CPU")
+        require(rflags.shape == (N_WATERFALLS, RAGGED_C, SIDE), "ragged coherent flags: shape")
+    del images, flags, rflags, vis4, ragged, coh_tf, coh_mask
+    phases["coherent flagging"] = time.perf_counter() - t
+
+    # -- 19: CoherentTrainer, the flagship recipe ----------------------------------------
+    t = time.perf_counter()
+    coh_dir = out_dir / "coherent"
+    shutil.rmtree(coh_dir, ignore_errors=True)
+    ckpt = coh_dir / f"step_{COH_CKPT}.pt"
+    a = CoherentTrainer(**COHERENT_RECIPE, seed=SEED)
+    require(a.model.dtype == torch.bfloat16, "CoherentTrainer's 'auto' dtype is not bf16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = a.fit(COH_CKPT, fused_steps=10, log_every=10)["history"]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    a.save_checkpoint(ckpt)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        history += a.fit(COH_STEPS - COH_CKPT, fused_steps=10, log_every=10)["history"]
+        b = CoherentTrainer(**COHERENT_RECIPE, seed=SEED)
+        b.restore_checkpoint(ckpt, num_steps_hint=COH_STEPS)
+        b.fit(COH_STEPS - COH_CKPT, fused_steps=10, log_every=10)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    losses = [h["loss"] for h in history]
+    with torch.no_grad():
+        worst = max(float(((x - y).abs() / (RESUME_ATOL + RESUME_RTOL * y.abs())).max())
+                    for x, y in zip(a.state.params + a.ema_params,
+                                    b.state.params + b.ema_params))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.fit(COH_TIMED, fused_steps=COH_TIMED, log_every=COH_TIMED)
+    torch.cuda.synchronize()
+    steps_s = COH_TIMED / (time.perf_counter() - t0)
+    x, y = a.sample(a.step)
+    sample_ms = cuda_ms(lambda: a.sample(0), calls=5, windows=3)
+    step_ms = cuda_ms(lambda: a.train_step(x, y), calls=5, windows=3)
+    # the sample batch's parts: the draw, the render, the 8 channels' robust scale
+    g19 = torch.Generator(device=dev).manual_seed(SEED)
+    d19 = a.sim.draw(a.batch_size, g19)
+    tf19 = a.sim.render(d19)[0]
+    parts_ms = {"draw": cuda_ms(lambda: a.sim.draw(a.batch_size, g19), calls=5, windows=3),
+                "render": cuda_ms(lambda: a.sim.render(d19), calls=5, windows=3),
+                "robust scale": cuda_ms(lambda: robust_scale(to_8ch(tf19)), calls=5, windows=3)}
+    del d19, tf19
+    log(f"CoherentTrainer {COHERENT_RECIPE}, bf16: losses every 10 steps "
+        + ", ".join(f"{v:.4f}" for v in losses) + f"; the first {COH_CKPT} steps (cuDNN set-up "
+        f"included) {first_s:.2f} s; {COH_TIMED} steps timed after: {steps_s:.2f} steps/s on "
+        f"{kind} (a sample batch {sample_ms:.2f} ms: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in parts_ms.items()) + f"; a step on it {step_ms:.2f} ms); resumed "
+        f"from step {COH_CKPT} against the uninterrupted run (deterministic cuDNN): params and "
+        f"EMA at {worst:.3g} of rtol {RESUME_RTOL:g} + atol {RESUME_ATOL:g}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            "CoherentTrainer: a loss is not finite or the loss did not fall")
+    require(worst <= 1.0, "CoherentTrainer: the resumed run differs from the uninterrupted one")
+    snap = a.export(coh_dir / "unet24gn.npz", best_threshold=0.5)
+    size = COHERENT_RECIPE["size"]
+    pred = CompiledPredictor.from_snapshot(snap, batch_size=GATE_BATCH,
+                                           input_shape=(size, size, 8))
+    loaded = CoherentTrainer.load(snap, dtype=torch.float32)
+    report = loaded.evaluate(num_batches=1, eval_batch=GATE_BATCH, thresholds=[0.5])
+    x, gt = coherent_batch(torch.Generator(device=dev).manual_seed(HELD_OUT_KEY), GATE_BATCH,
+                           size)
+    served = float(evaluate_segmentation_batch(pred(x), gt)["iou"].mean())
+    log(f"  export -> CompiledPredictor.from_snapshot: held-out IoU at 0.5 {served:.4f}; "
+        f"CoherentTrainer.load(...).evaluate(num_batches=1): {report['best_iou']:.4f}; "
+        f"the training model's evaluate: {a.evaluate(num_batches=1)['best_iou']:.4f}")
+    require(abs(served - report["best_iou"]) <= 1e-3,
+            "the served snapshot disagrees with the loaded trainer's evaluation")
+    shutil.rmtree(coh_dir)
+    phases["coherent training"] = time.perf_counter() - t
 
     log("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total wall time {time.perf_counter() - T_START:.1f} s")
@@ -1758,7 +2097,7 @@ def main():
         {"name": "fused_extract_channels", "route": "cuda",
          "source": "rfi_toolbox_tpu_torch/ops/csrc/channel_planes.cu",
          "replaces": "rfi_toolbox_tpu/ops/fused_channels.py:455",
-         "launches": k4_launches, "max_abs_err": max(k4_err.values()),
+         "launches": k4_launches + universal_launches, "max_abs_err": max(k4_err.values()),
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_bound_by, "library_ms": None},
         {"name": "mad_flag_patches", "route": "cuda",

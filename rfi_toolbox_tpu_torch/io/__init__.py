@@ -1,5 +1,5 @@
 """Flagging entry points."""
 
-from .flagging import flag_waterfalls
+from .flagging import flag_waterfalls, flag_waterfalls_coherent
 
-__all__ = ["flag_waterfalls"]
+__all__ = ["flag_waterfalls", "flag_waterfalls_coherent"]

@@ -4,6 +4,8 @@ generator that writes them to disk."""
 from . import events
 from .generator import RawPatchDataset, SyntheticDataGenerator
 from .sample import generate_bandpass, make_sample_generator, params_to_event_list
+from .simulator import RFISimulator
 
 __all__ = ["events", "generate_bandpass", "make_sample_generator",
-           "params_to_event_list", "SyntheticDataGenerator", "RawPatchDataset"]
+           "params_to_event_list", "SyntheticDataGenerator", "RawPatchDataset",
+           "RFISimulator"]

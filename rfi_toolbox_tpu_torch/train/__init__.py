@@ -1,6 +1,8 @@
-"""Training: losses, the optimiser state, the train steps, ``Trainer``
-and the raw-patch ``RawPatchTrainer``."""
+"""Training: losses, the optimiser state, the train steps, ``Trainer``,
+the raw-patch ``RawPatchTrainer`` and the coherent 8-channel
+``CoherentTrainer``."""
 
+from .coherent_trainer import CoherentTrainer, coherent_batch
 from .losses import bce_dice_loss, bce_with_logits_loss, dice_loss
 from .raw_patches import RawPatchTrainer, augment_batch, make_raw_patch_step
 from .trainer import (
@@ -12,6 +14,7 @@ from .trainer import (
     load_params,
     train_step,
     train_steps,
+    warmup_cosine_decay_schedule,
 )
 
 __all__ = [
@@ -29,4 +32,7 @@ __all__ = [
     "RawPatchTrainer",
     "augment_batch",
     "make_raw_patch_step",
+    "CoherentTrainer",
+    "coherent_batch",
+    "warmup_cosine_decay_schedule",
 ]

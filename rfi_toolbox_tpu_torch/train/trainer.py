@@ -16,7 +16,10 @@ follow optax and not ``torch.optim``:
   of the bias-corrected second moment, the bias corrections ``1 -
   b**step`` computed in float32 as optax computes them;
 - decoupled weight decay on the parameters before the update, scaled by
-  the learning rate with the Adam step.
+  the learning rate with the Adam step;
+- a learning rate that is a schedule (``warmup_cosine_decay_schedule``,
+  optax's) is evaluated at the count of updates already applied, in
+  float32, as optax's ``scale_by_schedule`` evaluates it.
 
 Images are NHWC (N, H, W, 3), labels (N, H, W). The model's conv
 kernels and its activations are kept in the channels-last layout
@@ -47,7 +50,8 @@ from ..utils.device import resolve_device
 from .losses import bce_dice_loss
 
 __all__ = ["TrainState", "Trainer", "create_train_state", "train_step",
-           "train_steps", "eval_step", "export_params", "load_params"]
+           "train_steps", "eval_step", "export_params", "load_params",
+           "warmup_cosine_decay_schedule"]
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults
 
@@ -60,7 +64,10 @@ class TrainState:
         params: its parameters, in ``model.parameters()`` order.
         mu, nu: Adam's first and second moments, one tensor per parameter.
         step: optimiser steps taken (a host int; no device sync).
-        learning_rate, weight_decay, clip_norm: the optimiser's settings.
+        learning_rate: a float, or a schedule ``count -> float`` that
+            :meth:`apply_gradients` evaluates at the count of updates
+            already applied (e.g. :func:`warmup_cosine_decay_schedule`).
+        weight_decay, clip_norm: the optimiser's other settings.
     """
 
     def __init__(self, model, learning_rate=1e-4, weight_decay=1e-5,
@@ -70,7 +77,8 @@ class TrainState:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.step = 0
-        self.learning_rate = float(learning_rate)
+        self.learning_rate = (learning_rate if callable(learning_rate)
+                              else float(learning_rate))
         self.weight_decay = float(weight_decay)
         self.clip_norm = float(clip_norm)
 
@@ -81,6 +89,9 @@ class TrainState:
     @torch.no_grad()
     def apply_gradients(self, grads):
         """One optimiser step, in place, without a host sync."""
+        lr = self.learning_rate
+        if callable(lr):
+            lr = lr(self.step)
         self.step += 1
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         # optax: t if norm < max_norm else (t / norm) * max_norm; below the
@@ -99,7 +110,7 @@ class TrainState:
         torch._foreach_add_(denom, EPS)
         update = torch._foreach_div(mu_hat, denom)
         torch._foreach_add_(update, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, update, alpha=-self.learning_rate)
+        torch._foreach_add_(self.params, update, alpha=-lr)
 
 
 def bias_correction(decay, step):
@@ -112,6 +123,34 @@ def bias_correction(decay, step):
     return float(1 - d ** torch.tensor(float(step), dtype=torch.float32))
 
 
+def warmup_cosine_decay_schedule(init_value, peak_value, warmup_steps, decay_steps,
+                                 end_value=0.0, exponent=1.0):
+    """optax's ``warmup_cosine_decay_schedule``: a linear warmup from
+    ``init_value`` to ``peak_value`` over ``warmup_steps``, then a cosine
+    decay to ``end_value`` at ``decay_steps`` (warmup included), held
+    after. Returns ``schedule(count) -> float``, the float value of the
+    float32 number optax computes, with its operations in optax's order
+    (the cosine is numpy's float32 one, within an ulp of XLA's)."""
+    f32 = np.float32
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cos_steps = decay_steps - warmup_steps
+    if cos_steps <= 0:
+        raise ValueError(f"decay_steps ({decay_steps}) must exceed warmup_steps "
+                         f"({warmup_steps})")
+
+    def schedule(count):
+        count = int(count)
+        if count < warmup_steps:  # optax's linear_schedule
+            frac = f32(1) - f32(max(count, 0)) / f32(warmup_steps)
+            return float(f32(init_value - peak_value) * frac + f32(peak_value))
+        t = f32(min(count - warmup_steps, cos_steps))  # optax's cosine_decay_schedule
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * t / f32(cos_steps)))
+        decayed = f32(1 - alpha) * cosine ** f32(exponent) + f32(alpha)
+        return float(f32(peak_value) * decayed)
+
+    return schedule
+
+
 def create_train_state(model, seed=0, learning_rate=1e-4, weight_decay=1e-5,
                        clip_norm=1.0, device=None):
     """Put ``model`` on the device and pair it with a fresh optimiser.
@@ -121,7 +160,8 @@ def create_train_state(model, seed=0, learning_rate=1e-4, weight_decay=1e-5,
         seed: int seed for Flax's initialisers (:func:`flax_init_`), or
             None to keep the model's weights (e.g. converted from a Flax
             state by ``models.params_from_flax``).
-        learning_rate, weight_decay, clip_norm: the JAX defaults.
+        learning_rate, weight_decay, clip_norm: the JAX defaults; the
+            learning rate may be a schedule (:class:`TrainState`).
         device: ``None`` for the CUDA card, or e.g. ``"cpu"``.
     """
     dev = resolve_device(device)

@@ -36,7 +36,12 @@ def test_import_leaves_jax_out():
         "rfi_toolbox_tpu_torch.ops.conv3x3, rfi_toolbox_tpu_torch.ops.fused_doubleconv, "
         "rfi_toolbox_tpu_torch.train.trainer, rfi_toolbox_tpu_torch.models.convert, "
         "rfi_toolbox_tpu_torch.data.batched_dataset, rfi_toolbox_tpu_torch.native, "
-        "rfi_toolbox_tpu_torch.synth.generator, rfi_toolbox_tpu_torch.train.raw_patches\n"
+        "rfi_toolbox_tpu_torch.synth.generator, rfi_toolbox_tpu_torch.train.raw_patches, "
+        "rfi_toolbox_tpu_torch.synth.simulator, rfi_toolbox_tpu_torch.train.coherent_trainer, "
+        "rfi_toolbox_tpu_torch.io.flagging\n"
+        "from rfi_toolbox_tpu_torch.synth import RFISimulator\n"
+        "from rfi_toolbox_tpu_torch.train import CoherentTrainer, coherent_batch\n"
+        "from rfi_toolbox_tpu_torch.io import flag_waterfalls_coherent\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
