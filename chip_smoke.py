@@ -157,7 +157,30 @@ phase fails:
     repeats steps 31-60 (deterministic cuDNN) within rtol 1e-5 and atol
     1e-6 of params and EMA; 20 steps timed for steps/s, with the sample
     batch and the step apart; export -> CompiledPredictor.from_snapshot
-    against CoherentTrainer.load(...).evaluate(num_batches=1).
+    against CoherentTrainer.load(...).evaluate(num_batches=1);
+20. the shipped SOLOLite detector (``pretrained/sololite_synthetic.npz``:
+    features 48, embed 48, grid 8, patch 128) through
+    InstanceTrainer.load: card against CPU (TF32 off) on 8 held-out images
+    (classes and kept detections equal, scores within 1e-4, masks on >=
+    99.9% of the pixels); tests/test_instance_quality.py's held-out gates
+    by evaluate_instance_model on 256 images a mix of the port's stream
+    (default mix at score 0.3: recall >= 0.70, n_gt > 640; all six
+    families at 0.25: recall within 3 standard errors of the detector's
+    float32 recall on JAX's stream, ``INST_REF_RECALL``, the JAX gate's
+    0.80 printed beside, precision >= 0.80, every family present and at
+    >= 0.70, n_gt > 1200), K4 once an evaluation batch of 64; the
+    forward's and the decode + Matrix-NMS's ms per batch of 64;
+21. InstanceTrainer at the shipped recipe (SOLOLite f=48, patch 128,
+    batch 64, float32, the default mix, warmup-cosine 1e-5 -> 8e-4 ->
+    1e-5), generation on the card: 60 steps in groups of 10, K4 once a
+    step, losses finite and the last 10's mean below the first 10's; a
+    checkpoint at 30 restored repeats steps 31-60 within rtol 1e-5 / atol
+    1e-6 (deterministic cuDNN); one float32 step of 8 on the card against
+    the CPU (phase 9's bounds, with phase 12's floor of 1e-4 on the
+    gradient's distance to float64); one step with a quarter of the batch
+    replaced by phase 5's patches; 20 steps timed for steps/s, the sample
+    batch and the step apart; save -> InstanceTrainer.load -> predict
+    equal to the trainer's own.
 
 Waterfalls/s is timed on the host clock over 3 windows of at least
 ``WINDOW_S`` seconds each (calls queued back to back, one synchronize at
@@ -395,6 +418,43 @@ RAGGED_C = 1000  # phase 18's ragged case: 1000 x 1024
 COHERENT_RECIPE = {"init_features": 24, "size": 256, "batch_size": 16, "norm": "group"}
 COH_STEPS, COH_CKPT, COH_TIMED = 60, 30, 20
 RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6  # tests/test_coherent_trainer.py's
+# Phases 20-21: the SOLOLite instance path. Phase 20 serves the shipped
+# detector and holds it to tests/test_instance_quality.py's held-out floors
+# on the port's own stream: INST_IMAGES images a mix (4x the JAX all-six
+# gate's 64), batch j of INST_BATCH drawn from a generator seeded
+# INST_HELD_OUT + j. Seeds and counts are fixed before the first run.
+SOLOLITE = "pretrained/sololite_synthetic.npz"
+INST_IMAGES, INST_BATCH, INST_HELD_OUT = 256, 64, 10_000
+ALL_SIX = {
+    "narrowband_persistent": {"count": [1, 3]},
+    "broadband_persistent": {"count": [0, 2]},
+    "narrowband_intermittent": {"count": [0, 2]},
+    "narrowband_bursty": {"count": [0, 2]},
+    "broadband_bursty": {"count": [0, 1]},
+    "frequency_sweep": {"count": [0, 1]},
+}
+# The shipped detector's float32 recall on the all-six mix: 2048 images of
+# JAX's stream on the CPU (tests/instance_quality_cpu.py). The JAX gate's
+# recall floor of 0.80 sits on this mean (its 0.822 record is one 64-image
+# sample's), so a 256-image sample misses it about half the time whatever
+# the port does. Phase 20 holds the card's all-six recall to this
+# reference within 3 binomial standard errors of its sample, and prints
+# the 0.80 floor beside it; every other floor is the JAX gates'.
+INST_REF_RECALL = 0.8003
+# the JAX gates' floors, n_gt scaled by 256/16 and 256/64
+INSTANCE_GATES = {
+    "default": {"rfi_config": None, "score": 0.3, "recall": 0.70, "n_gt": 640},
+    "all six": {"rfi_config": ALL_SIX, "score": 0.25, "recall": 0.80,
+                "recall_reference": INST_REF_RECALL, "precision": 0.80, "family": 0.70,
+                "families": 6, "n_gt": 1200},
+}
+INST_TOL = 1e-4  # phase 20: scores, card vs CPU (TF32 off)
+# phase 21: cli/train_model.py's --instance recipe (the shipped detector's
+# widths, patch 128, batch 64, float32, the default mix, its warmup-cosine
+# schedule for the run's length); 60 steps, a checkpoint at 30
+INST_MODEL = {"num_classes": 6, "grid_size": 8, "features": 48, "embed_dim": 48}
+INST_STEPS, INST_CKPT, INST_TIMED = 60, 30, 20
+INST_CHECK_LR, INST_CHECK_BATCH = 8e-4, 8  # the card-vs-CPU step: the recipe's peak rate
 # Operations of K1's and K2's function a base pixel: the exact |z| (a
 # division, a float64 FMA, a square root: ~25), log10 (~20), atan2 (~40),
 # three gradients (~30), min/max, windows and affines (~35). A count of 60
@@ -655,9 +715,11 @@ def main():
     from rfi_toolbox_tpu_torch.data import ArrayDataset, BatchWriter, StreamingDataset
     from rfi_toolbox_tpu_torch.evaluation import evaluate_segmentation
     from rfi_toolbox_tpu_torch.evaluation import evaluate_segmentation_batch
+    from rfi_toolbox_tpu_torch.evaluation import evaluate_instance_model
     from rfi_toolbox_tpu_torch.io import flag_waterfalls, flag_waterfalls_coherent
     from rfi_toolbox_tpu_torch.io.flagging import coherent_images
-    from rfi_toolbox_tpu_torch.models import DoubleConv, UNet, load_params
+    from rfi_toolbox_tpu_torch.models import DoubleConv, SOLOLite, UNet, load_params
+    from rfi_toolbox_tpu_torch.models import solo_decode, solo_loss
     from rfi_toolbox_tpu_torch.ops import (
         _lib,
         fused_extract_channels,
@@ -676,14 +738,17 @@ def main():
     )
     from rfi_toolbox_tpu_torch.train import (
         CoherentTrainer,
+        InstanceTrainer,
         RawPatchTrainer,
         coherent_batch,
         Trainer,
         bce_dice_loss,
         create_train_state,
         export_params,
+        make_instance_train_step,
         train_step,
         train_steps,
+        warmup_cosine_decay_schedule,
     )
     from rfi_toolbox_tpu_torch.train.coherent_trainer import robust_scale, to_8ch
     from rfi_toolbox_tpu_torch.train.flops import unet_train_flops_analytic
@@ -2054,6 +2119,248 @@ def main():
     shutil.rmtree(coh_dir)
     phases["coherent training"] = time.perf_counter() - t
 
+    # -- 20: serve the shipped SOLOLite detector ------------------------------------------
+    t = time.perf_counter()
+    served = InstanceTrainer.load(SOLOLITE, batch_size=INST_BATCH, seed=0)
+    cpu_served = InstanceTrainer.load(SOLOLITE, batch_size=INST_BATCH, seed=0, device="cpu")
+    held = served.generate_batch(torch.Generator(device=dev).manual_seed(INST_HELD_OUT))
+    images20 = fused_extract_channels(held["waterfall"])  # (64, 128, 128, 3)
+    n_cmp = 8
+    card = served.predict(images20[:n_cmp], score_thresh=0.3)
+    host = cpu_served.predict(images20[:n_cmp].cpu(), score_thresh=0.3)
+    kept_equal = cls_equal = True
+    score_err, mask_agree = 0.0, []
+    for c, h in zip(card, host):
+        kept = (c["scores"] >= 0.3) | (h["scores"] >= 0.3)
+        kept_equal &= bool(np.array_equal(c["scores"] >= 0.3, h["scores"] >= 0.3))
+        cls_equal &= bool(np.array_equal(c["classes"][kept], h["classes"][kept]))
+        score_err = max(score_err, float(np.abs(c["scores"] - h["scores"]).max()))
+        mask_agree.append(float((c["masks"] == h["masks"]).mean()))
+    n_kept = sum(int((c["scores"] >= 0.3).sum()) for c in card)
+    log(f"SOLOLite {SOLOLITE.split('/')[-1]} card against CPU (TF32 off) on {n_cmp} held-out "
+        f"images of {PATCH}^2: kept detections equal {kept_equal} ({n_kept} kept at 0.3), their "
+        f"classes equal {cls_equal}, max |score diff| {score_err:.2e} (tol {INST_TOL:g}), masks "
+        f"equal on {min(mask_agree):.6f} of the pixels (tol {MASK_AGREE:g})")
+    require(kept_equal and cls_equal, "SOLOLite: the card's detections differ from the CPU's")
+    require(score_err <= INST_TOL, "SOLOLite: the card's scores differ from the CPU's")
+    require(min(mask_agree) >= MASK_AGREE, "SOLOLite: the card's masks differ from the CPU's")
+    del cpu_served, card, host
+    inst_eval_launches = 0
+    for mix, gate in INSTANCE_GATES.items():
+        tr = InstanceTrainer.load(SOLOLITE, batch_size=INST_BATCH, seed=0,
+                                  rfi_config=gate["rfi_config"])
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = evaluate_instance_model(tr, num_images=INST_IMAGES, seed=INST_HELD_OUT,
+                                    score_thresh=gate["score"])
+        eval_s = time.perf_counter() - t0
+        launches = fused_extract_channels.launches
+        inst_eval_launches += launches
+        per_class = q["per_class_recall"]
+        rec_floor, rec_text = gate["recall"], f"floor {gate['recall']}"
+        if "recall_reference" in gate:
+            ref = gate["recall_reference"]
+            rec_floor = ref - 3 * np.sqrt(ref * (1 - ref) / q["n_gt"])
+            rec_text = (f"floor {rec_floor:.4f}: the float32 reference {ref} less 3 standard "
+                        f"errors; the JAX gate's {gate['recall']} "
+                        + ("met" if q["recall"] >= gate["recall"] else "missed"))
+        log(f"gate SOLOLite, {mix} mix at score {gate['score']}: recall {q['recall']:.4f} "
+            f"({rec_text}), precision {q['precision']:.4f}"
+            + (f" (floor {gate['precision']})" if "precision" in gate else "")
+            + f", mean best IoU {q['mean_best_iou']:.4f}, n_gt {q['n_gt']} (> {gate['n_gt']}), "
+            f"n_det {q['n_det']}; per family " + ", ".join(
+                f"{c} {r:.3f}" for c, r in per_class.items())
+            + (f" (floor {gate['family']})" if "family" in gate else "")
+            + f"; {INST_IMAGES} images in {eval_s:.2f} s; K4 launches {launches}")
+        require(launches == INST_IMAGES // INST_BATCH,
+                f"SOLOLite {mix} gate: K4 did not run once an evaluation batch")
+        require(q["n_gt"] > gate["n_gt"], f"SOLOLite {mix} gate: too few ground-truth events")
+        require(q["recall"] >= rec_floor, f"SOLOLite {mix} gate: recall under its floor")
+        if "precision" in gate:
+            require(q["precision"] >= gate["precision"],
+                    f"SOLOLite {mix} gate: precision under its floor")
+        if "family" in gate:
+            require(len(per_class) == gate["families"]
+                    and min(per_class.values()) >= gate["family"],
+                    f"SOLOLite {mix} gate: a family is missing or under its floor")
+    with torch.no_grad():
+        out20 = served.model(images20)
+        fwd_ms = cuda_ms(lambda: served.model(images20), calls=5, windows=3)
+        dec_ms = cuda_ms(lambda: solo_decode(out20, score_thresh=0.3,
+                                             out_size=(PATCH, PATCH)), calls=5, windows=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served.predict(images20, score_thresh=0.3)
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  SOLOLite per batch of {INST_BATCH} on {kind}: forward {fwd_ms:.3f} ms, decode + "
+        f"Matrix-NMS at {PATCH}^2 {dec_ms:.3f} ms, predict with the masks' copy to the host "
+        f"{predict_ms:.1f} ms (host clock, one call)")
+    del out20, served
+    phases["instance serving"] = time.perf_counter() - t
+
+    # -- 21: InstanceTrainer at the shipped recipe ----------------------------------------
+    t = time.perf_counter()
+    inst_dir = out_dir / "instance"
+    shutil.rmtree(inst_dir, ignore_errors=True)
+    warmup = min(500, max(INST_STEPS // 4, 1))
+    schedule = warmup_cosine_decay_schedule(1e-5, 8e-4, warmup, max(INST_STEPS, warmup + 1),
+                                            end_value=1e-5)
+
+    def recipe(**kwargs):
+        kwargs = {"batch_size": INST_BATCH, "learning_rate": schedule, "seed": SEED, **kwargs}
+        return InstanceTrainer(model=SOLOLite(**INST_MODEL), patch_size=PATCH, **kwargs)
+
+    def capture_losses(trainer):
+        """Every step's loss of the fused groups (fit logs each group's last)."""
+        seen, fused = [], trainer._fused
+
+        def run(state, generators):
+            state, losses, parts = fused(state, generators)
+            seen.append(losses)
+            return state, losses, parts
+        trainer._fused = run
+        return seen
+
+    a = recipe()
+    seen = capture_losses(a)
+    ckpt = inst_dir / f"step_{INST_CKPT}.pt"
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.fit(INST_CKPT, fused_steps=10, log_every=10)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    a.save_checkpoint(ckpt)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        history = a.fit(INST_STEPS - INST_CKPT, fused_steps=10, log_every=10)["history"]
+        torch.cuda.synchronize()
+        inst_train_launches = fused_extract_channels.launches
+        b = recipe()
+        b.restore_checkpoint(ckpt)
+        b.fit(INST_STEPS - INST_CKPT, fused_steps=10, log_every=10)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    losses = torch.cat(seen).cpu().double()
+    with torch.no_grad():
+        worst = max(float(((x - y).abs() / (RESUME_ATOL + RESUME_RTOL * y.abs())).max())
+                    for x, y in zip(a.state.params + a.state.mu, b.state.params + b.state.mu))
+    del b
+    # conv FLOPs of one forward at 128^2, from the layers' shapes
+    conv_flops = []
+    hooks = [m.register_forward_hook(lambda m, i, o: conv_flops.append(
+        2 * o.numel() * m.weight[0].numel())) for m in a.model.modules()
+        if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        a.model(images20[:1])
+    for h in hooks:
+        h.remove()
+    step_tflop = 3 * INST_BATCH * sum(conv_flops) / 1e12
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.fit(INST_TIMED, fused_steps=INST_TIMED, log_every=INST_TIMED)
+    torch.cuda.synchronize()
+    inst_steps_s = INST_TIMED / (time.perf_counter() - t0)
+    x = a.sample(a.step)
+    args = [x[k] for k in ("waterfall", "inst_masks", "inst_classes", "inst_valid")]
+    sample_ms = cuda_ms(lambda: a.sample(0), calls=5, windows=3)
+    step_ms = cuda_ms(lambda: a._step(a.state, *args), calls=5, windows=3)
+    k4_64_ms = cuda_ms(lambda: fused_extract_channels(args[0]))
+    n_px = args[0].numel()
+    k4_64_bound, k4_64_by = bound(n_px * (8 + 12), n_px * K4_OPS_PER_PIXEL)
+    log(f"InstanceTrainer {INST_MODEL}, patch {PATCH}, batch {INST_BATCH}, float32, the "
+        f"recipe's schedule (warmup {warmup}): losses " + ", ".join(
+            f"{v:.4f}" for v in losses[::10].tolist()) + f" (every 10th), mean of the first "
+        f"10 {float(losses[:10].mean()):.4f}, of the last 10 {float(losses[-10:].mean()):.4f};"
+        f" K4 launches in the {INST_STEPS} steps {inst_train_launches}; the first {INST_CKPT} "
+        f"steps (cuDNN set-up included) {first_s:.2f} s; {INST_TIMED} steps timed after: "
+        f"{inst_steps_s:.2f} steps/s on {kind} (a sample batch {sample_ms:.2f} ms, a step on "
+        f"it {step_ms:.2f} ms, {step_tflop:.3f} TFLOP of convs a step: "
+        f"{step_tflop / step_ms * 1e3:.1f} TFLOP/s; K4 at ({INST_BATCH},{PATCH},{PATCH}) "
+        f"{k4_64_ms:.4f} ms, bound {k4_64_bound:.4f} ({k4_64_by})); resumed from step "
+        f"{INST_CKPT} against the uninterrupted run (deterministic cuDNN): params and Adam's "
+        f"first moments at {worst:.3g} of rtol {RESUME_RTOL:g} + atol {RESUME_ATOL:g}; last "
+        f"record {history[-1]}")
+    require(bool(torch.isfinite(losses).all()) and len(losses) == INST_STEPS,
+            "InstanceTrainer: a loss is not finite")
+    require(float(losses[-10:].mean()) < float(losses[:10].mean()),
+            "InstanceTrainer: the loss did not fall")
+    require(inst_train_launches == INST_STEPS, "InstanceTrainer: K4 did not run once a step")
+    require(worst <= 1.0, "InstanceTrainer: the resumed run differs from the uninterrupted one")
+
+    # one float32 step of 8 on the card (K4) against the CPU (the plain
+    # extraction), from the same weights on the same batch. The float32
+    # gradients lie within 1e-5 of float64 in norm, and where they are that
+    # close their distance is set by which max-pool and ReLU choices flip
+    # (the images' 7e-7 differences alone move the card's from 7.6e-6 to
+    # 2.4e-5: tools/instance_grad_float64.py), so the card's gradient is held
+    # to 2x the CPU's distance or to phase 12's floor of 1e-4, whichever is
+    # larger
+    def fresh(device=None):
+        trainer = InstanceTrainer(model=SOLOLite(**INST_MODEL), patch_size=PATCH,
+                                  batch_size=INST_CHECK_BATCH, learning_rate=INST_CHECK_LR,
+                                  seed=SEED, device=device)
+        trainer._init()
+        return trainer
+
+    c_cpu, c_gpu, c_opt = fresh("cpu"), fresh(), fresh()
+    check = c_gpu.generate_batch(torch.Generator(device=dev).manual_seed(SEED + 21))
+    args_gpu = [check[k] for k in ("waterfall", "inst_masks", "inst_classes", "inst_valid")]
+    args_cpu = [v.cpu() for v in args_gpu]
+    start = flat(c_cpu.state.params)
+    m64 = copy.deepcopy(c_cpu.model).double()
+    loss64 = solo_loss(m64(fused_extract_channels_plain(args_cpu[0]).double()), *args_cpu[1:])[0]
+    g64 = flat(torch.autograd.grad(loss64, list(m64.parameters())))
+    g_cpu, g_gpu = recorded(c_cpu.state), recorded(c_gpu.state)
+    one_step = make_instance_train_step()
+    reset_counts()
+    l_gpu = float(one_step(c_gpu.state, *args_gpu)[1])
+    require(fused_extract_channels.launches == 1, "the float32 step on the card did not run K4")
+    l_cpu = float(one_step(c_cpu.state, *args_cpu)[1])
+    c_opt.state.apply_gradients([g.to(dev) for g in g_cpu[0]])
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    err_cpu = float((flat(g_cpu[0]) - g64).norm() / g64.norm())
+    err_gpu = float((flat(g_gpu[0]) - g64).norm() / g64.norm())
+    p_cpu = flat(c_cpu.state.params)
+    opt_diff = float((flat(c_opt.state.params) - p_cpu).abs().max()) / INST_CHECK_LR
+    path_agree = float((((flat(c_gpu.state.params) - start) - (p_cpu - start)).abs()
+                        <= OPT_ATOL_LR * INST_CHECK_LR).double().mean())
+    log(f"  float32 step on {INST_CHECK_BATCH} images, card (K4) against CPU (plain): loss "
+        f"{l_gpu:.6f} / {l_cpu:.6f} (float64 {float(loss64.detach()):.6f}), rel diff {rel:.2e} (tol "
+        f"{F32_LOSS_RTOL:g}); gradient off float64 by {err_gpu:.3e} (card) and {err_cpu:.3e} "
+        f"(CPU) in norm (card at most 2x the CPU or {GRAD_F64_FLOOR:g}); optimiser fed the "
+        f"CPU's gradients: max "
+        f"|param diff| {opt_diff:.2e} * lr (tol {OPT_ATOL_LR:g}); the two steps' updates agree "
+        f"within {OPT_ATOL_LR:g} * lr on {path_agree:.4f} of the coordinates (not checked)")
+    require(rel <= F32_LOSS_RTOL, "SOLOLite float32 step: card and CPU losses disagree")
+    require(err_gpu <= max(2 * err_cpu, GRAD_F64_FLOOR),
+            "SOLOLite float32 gradient: the card is far from float64")
+    require(opt_diff <= OPT_ATOL_LR, "SOLOLite: the optimiser on the card disagrees with the CPU")
+    del c_cpu, c_gpu, c_opt, m64, g64, g_cpu, g_gpu
+
+    # real-patch mixing: a quarter of the batch from phase 5's 128^2 patches
+    reset_counts()
+    mixed = a.fit(1, log_every=1, real_patches=patches, real_fraction=0.25)["history"]
+    require(np.isfinite(mixed[0]["loss"]) and fused_extract_channels.launches == 1,
+            "InstanceTrainer with real patches: the loss is not finite or K4 did not run once")
+    snap = a.save(inst_dir / "sololite.npz")
+    loaded = InstanceTrainer.load(snap, batch_size=INST_BATCH)
+    torch.backends.cudnn.deterministic = True
+    try:
+        mine = a.predict(images20[:n_cmp], score_thresh=0.3)
+        theirs = loaded.predict(images20[:n_cmp], score_thresh=0.3)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = all(np.array_equal(p[k], q[k]) for p, q in zip(mine, theirs) for k in p)
+    log(f"  a step with {INST_BATCH // 4} of {INST_BATCH} samples from phase 5's patches: loss "
+        f"{mixed[0]['loss']:.4f}, K4 once; save -> InstanceTrainer.load -> predict equal to "
+        f"the trainer's own predict: {same}")
+    require(same, "InstanceTrainer: the loaded snapshot predicts otherwise than the trainer")
+    del a, loaded, images20, held
+    shutil.rmtree(inst_dir)
+    phases["instance training"] = time.perf_counter() - t
+
     log("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total wall time {time.perf_counter() - T_START:.1f} s")
     static_json = []
@@ -2097,7 +2404,8 @@ def main():
         {"name": "fused_extract_channels", "route": "cuda",
          "source": "rfi_toolbox_tpu_torch/ops/csrc/channel_planes.cu",
          "replaces": "rfi_toolbox_tpu/ops/fused_channels.py:455",
-         "launches": k4_launches + universal_launches, "max_abs_err": max(k4_err.values()),
+         "launches": k4_launches + universal_launches + inst_eval_launches
+         + inst_train_launches, "max_abs_err": max(k4_err.values()),
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_bound_by, "library_ms": None},
         {"name": "mad_flag_patches", "route": "cuda",

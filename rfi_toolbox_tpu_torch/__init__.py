@@ -11,25 +11,29 @@ CUDA device unless the caller passes ``device="cpu"``; with no card
 they raise instead of falling back.
 
 Subpackages (the slices ported so far: flagging, the training main
-path, train -> export -> serve, and training from files and raw patches):
+path, train -> export -> serve, training from files and raw patches, the
+coherent 8-channel path, and the SOLOLite instance path):
 - utils: device resolution, the float32 precision switch, progress bars
 - preprocess: the plain pipeline (the plain versions of the kernels),
   the static virtual-augmentation prep, ``Preprocessor`` and the
   raw-patch ``DevicePreprocessor``
 - ops: hand-written CUDA kernels (csrc/) with their ctypes wrappers
 - models: UNet (bfloat16 compute, Flax BatchNorm and initialisers),
-  BatchNorm folding, Flax snapshot conversion
-- synth: synthetic waterfall batches with exact RFI masks, and
-  ``SyntheticDataGenerator``, which writes datasets to disk
+  BatchNorm folding, Flax snapshot conversion; SOLOLite (dense instance
+  segmentation), its loss, Matrix-NMS and decode
+- synth: synthetic waterfall batches with exact RFI masks (or one mask
+  per event), ``SyntheticDataGenerator``, which writes datasets to disk,
+  and the coherent ``RFISimulator``
 - data: ``ArrayDataset``, the batch-file writer ``BatchWriter``, the
   bounded-memory reader ``StreamingDataset`` and ``load_batches``
 - native: the threaded ``.npy`` reader (C++, built with g++ on first use)
 - train: losses, the optax-equivalent optimiser, the train steps,
-  ``Trainer`` (in memory or streamed from batch files) and
-  ``RawPatchTrainer``
+  ``Trainer`` (in memory or streamed from batch files),
+  ``RawPatchTrainer``, ``CoherentTrainer`` and ``InstanceTrainer``
 - serving: fixed-batch segmentation predictor
-- io: ``flag_waterfalls``
-- evaluation: segmentation metrics
+- io: ``flag_waterfalls``, ``flag_waterfalls_coherent``
+- evaluation: segmentation metrics; instance matching and the held-out
+  evaluation of ``InstanceTrainer``
 """
 
 __version__ = "0.1.0"

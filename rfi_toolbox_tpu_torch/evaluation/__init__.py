@@ -1,5 +1,6 @@
-"""Segmentation metrics."""
+"""Segmentation metrics, and the instance metrics of SOLOLite."""
 
+from .instances import evaluate_instance_model, match_instances
 from .metrics import (
     compute_dice,
     compute_f1,
@@ -20,4 +21,6 @@ __all__ = [
     "compute_dice",
     "evaluate_segmentation",
     "evaluate_segmentation_batch",
+    "match_instances",
+    "evaluate_instance_model",
 ]

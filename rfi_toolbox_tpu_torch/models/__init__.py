@@ -1,6 +1,23 @@
-"""Segmentation models (PyTorch)."""
+"""Segmentation models (PyTorch): the UNet and the SOLOLite instance model."""
 
-from .convert import load_params, params_from_flax, params_to_flax, unet_from_snapshot
+from .convert import (
+    load_params,
+    params_from_flax,
+    params_to_flax,
+    save_params,
+    sololite_from_flax,
+    sololite_from_snapshot,
+    sololite_to_flax,
+    unet_from_snapshot,
+)
+from .instance import (
+    SOLOLite,
+    assign_targets,
+    instance_masks_from_outputs,
+    matrix_nms,
+    solo_decode,
+    solo_loss,
+)
 from .folding import fold_batchnorm
 from .unet import (
     ConvTranspose2x2,
@@ -33,4 +50,14 @@ __all__ = [
     "params_from_flax",
     "params_to_flax",
     "unet_from_snapshot",
+    "save_params",
+    "SOLOLite",
+    "instance_masks_from_outputs",
+    "assign_targets",
+    "solo_loss",
+    "matrix_nms",
+    "solo_decode",
+    "sololite_from_flax",
+    "sololite_to_flax",
+    "sololite_from_snapshot",
 ]

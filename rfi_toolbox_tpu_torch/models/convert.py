@@ -1,12 +1,16 @@
-"""Flax UNet snapshots -> the port's UNet weights.
+"""Flax snapshots <-> the port's UNet and SOLOLite weights.
 
 ``load_params`` reads the ``.npz`` inference snapshots that
 ``rfi_toolbox_tpu.train.export_params`` writes (``pretrained/*.npz``) with
-numpy alone. ``params_from_flax`` turns the nested Flax parameter and
-batch-statistics dicts into a ``state_dict`` for
-:class:`rfi_toolbox_tpu_torch.models.unet.UNet`, and ``params_to_flax``
-turns a model back into them, exactly (the port's ``export_params``
-writes them):
+numpy alone, and ``save_params`` writes them. ``params_from_flax`` turns
+the nested Flax parameter and batch-statistics dicts into a
+``state_dict`` for :class:`rfi_toolbox_tpu_torch.models.unet.UNet`, and
+``params_to_flax`` turns a model back into them, exactly (the port's
+``export_params`` writes them); ``sololite_from_flax`` and
+``sololite_to_flax`` do the same for
+:class:`rfi_toolbox_tpu_torch.models.instance.SOLOLite`, whose Flax
+modules ``_ConvBlock_i`` and ``Conv_j`` are its ``blocks[i]`` and
+``convs[j]``:
 
 - conv kernels go from HWIO to OIHW;
 - the transposed-conv kernel is mirrored (``kernel[::-1, ::-1]``), as the
@@ -16,12 +20,14 @@ writes them):
 """
 
 import json
+from pathlib import Path
 
 import numpy as np
 import torch
 
-__all__ = ["load_params", "params_from_flax", "params_to_flax",
-           "unet_from_snapshot"]
+__all__ = ["load_params", "save_params", "params_from_flax", "params_to_flax",
+           "unet_from_snapshot", "sololite_from_flax", "sololite_to_flax",
+           "sololite_from_snapshot"]
 
 
 def load_params(path):
@@ -46,6 +52,39 @@ def load_params(path):
                 tree = tree.setdefault(p, {})
             tree[leaf] = z[key]
     return params, stats, metadata
+
+
+def save_params(path, params, batch_stats=None, metadata=None):
+    """Write the snapshot :func:`load_params` reads, as the JAX
+    ``export_params`` writes it: ``params/...`` and ``batch_stats/...``
+    arrays keyed by the Flax variable paths, and ``__metadata__`` (JSON),
+    compressed. Returns ``path``."""
+    arrays = {}
+
+    def flatten(prefix, tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                flatten(f"{prefix}/{k}", v)
+            else:
+                arrays[f"{prefix}/{k}"] = np.asarray(v)
+
+    flatten("params", params)
+    flatten("batch_stats", batch_stats or {})
+    arrays["__metadata__"] = np.bytes_(json.dumps(metadata or {}).encode())
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **arrays)
+    return path
+
+
+def _checked(sd, model):
+    """``sd`` as torch tensors, after checking its keys against ``model``'s."""
+    want = set(model.state_dict())
+    if set(sd) != want:
+        raise ValueError(
+            "snapshot does not match the model: missing "
+            f"{sorted(want - set(sd))}, unexpected {sorted(set(sd) - want)}"
+        )
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
 def _conv(dst, prefix, p):
@@ -97,14 +136,7 @@ def params_from_flax(params, batch_stats, model):
         _double_conv(sd, f"decoders.{i}.block", params[name]["DoubleConv_0"],
                      stats.get(name, {}).get("DoubleConv_0", {}))
     _conv(sd, "head", params["Conv_0"])
-
-    want = set(model.state_dict())
-    if set(sd) != want:
-        raise ValueError(
-            "snapshot does not match the model: missing "
-            f"{sorted(want - set(sd))}, unexpected {sorted(set(sd) - want)}"
-        )
-    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    return _checked(sd, model)
 
 
 def _conv_to(sd, prefix):
@@ -185,4 +217,50 @@ def unet_from_snapshot(path, model=None):
             space_to_depth=s2d,
         ).eval()
     model.load_state_dict(params_from_flax(params, stats, model))
+    return model, meta
+
+
+def sololite_from_flax(params, model):
+    """Flax SOLOLite parameters (nested dicts of arrays) -> ``state_dict``
+    for the port's :class:`SOLOLite` ``model`` of the same architecture
+    (checked by its keys). SOLOLite has no batch statistics."""
+    sd = {}
+    for i in range(len(model.blocks)):
+        p = params[f"_ConvBlock_{i}"]
+        _conv(sd, f"blocks.{i}.conv", p["Conv_0"])
+        sd[f"blocks.{i}.norm.weight"] = p["GroupNorm_0"]["scale"]
+        sd[f"blocks.{i}.norm.bias"] = p["GroupNorm_0"]["bias"]
+    for j in range(len(model.convs)):
+        _conv(sd, f"convs.{j}", params[f"Conv_{j}"])
+    return _checked(sd, model)
+
+
+def sololite_to_flax(model):
+    """The port's SOLOLite -> Flax parameters, nested dicts of float32
+    numpy arrays: the inverse of :func:`sololite_from_flax`."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    params = {}
+    for i in range(len(model.blocks)):
+        params[f"_ConvBlock_{i}"] = {
+            "Conv_0": _conv_to(sd, f"blocks.{i}.conv"),
+            "GroupNorm_0": {"scale": sd[f"blocks.{i}.norm.weight"],
+                            "bias": sd[f"blocks.{i}.norm.bias"]},
+        }
+    for j in range(len(model.convs)):
+        params[f"Conv_{j}"] = _conv_to(sd, f"convs.{j}")
+    return params
+
+
+def sololite_from_snapshot(path):
+    """Load a SOLOLite snapshot (``InstanceTrainer.save`` of either
+    package, e.g. ``pretrained/sololite_synthetic.npz``) into the port's
+    SOLOLite that its metadata describes. Returns ``(model, metadata)``;
+    the model is on the CPU in eval mode."""
+    from .instance import SOLOLite
+
+    params, _, meta = load_params(path)
+    model = SOLOLite(num_classes=meta["num_classes"], grid_size=meta["grid_size"],
+                     embed_dim=meta["embed_dim"], features=meta["features"],
+                     space_to_depth=bool(meta.get("space_to_depth", False))).eval()
+    model.load_state_dict(sololite_from_flax(params, model))
     return model, meta

@@ -62,6 +62,10 @@ GROUP_NORM_EPS = 1e-6  # flax nn.GroupNorm default
 FLAX_MOMENTUM = 0.9  # the JAX UNet's nn.BatchNorm(momentum=0.9)
 
 
+def _at_least_f32(dtype):
+    return torch.promote_types(dtype, torch.float32)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose float32 parameters are cast to the input's
     dtype for the convolution, as Flax's ``nn.Conv(dtype=...)`` does."""
@@ -105,11 +109,11 @@ class BatchNorm(nn.BatchNorm2d):
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm (Flax's eps 1e-6) with float32 statistics; the output
-    keeps the input's dtype."""
+    """GroupNorm (Flax's eps 1e-6) with statistics in float32 (float64 for
+    a float64 input); the output keeps the input's dtype."""
 
     def forward(self, x):
-        y = nn.functional.group_norm(x.to(torch.float32), self.num_groups,
+        y = nn.functional.group_norm(x.to(_at_least_f32(x.dtype)), self.num_groups,
                                      self.weight, self.bias, self.eps)
         return y.to(x.dtype)
 
@@ -333,9 +337,10 @@ def flax_init_(model, generator=None):
     """Give ``model``'s parameters Flax's initial values, in place:
     ``lecun_normal`` kernels (a normal of std ``sqrt(1 / fan_in) /
     0.8796``, truncated at two standard deviations; fan_in is the
-    kernel's input channels times its spatial size), zero biases, norm
-    scale 1 and bias 0, running mean 0 and variance 1. Returns
-    ``model``."""
+    kernel's input channels times its spatial size), zero biases (or the
+    constant a conv names in its ``bias_init`` attribute, as SOLOLite's
+    category head does), norm scale 1 and bias 0, running mean 0 and
+    variance 1. Returns ``model``."""
     for module in model.modules():
         if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
             w = module.weight
@@ -347,7 +352,7 @@ def flax_init_(model, generator=None):
             nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                                   generator=generator)
             if module.bias is not None:
-                module.bias.zero_()
+                module.bias.fill_(getattr(module, "bias_init", 0.0))
         elif isinstance(module, (nn.BatchNorm2d, nn.GroupNorm)):
             module.reset_parameters()
     return model

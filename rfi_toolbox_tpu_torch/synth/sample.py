@@ -1,8 +1,8 @@
 """Synthetic waterfall batches on the card.
 
 Counterpart of ``rfi_toolbox_tpu/synth/sample.py`` (``generate_bandpass``,
-``make_sample_generator``, ``params_to_event_list``;
-``make_instance_sample_generator`` is not ported yet). Where the JAX package ``vmap``s one sample over keys, the
+``make_sample_generator``, ``make_instance_sample_generator``,
+``params_to_event_list``). Where the JAX package ``vmap``s one sample over keys, the
 port draws a whole batch on the device in one call: the separable event
 stack becomes two batched matrix products, the sweeps a loop over their
 few events. Laws, units (RFI amplitudes in mJy, drawn in Jy x 1000) and
@@ -16,7 +16,8 @@ import torch
 from ..utils.device import resolve_device
 from . import events as E
 
-__all__ = ["make_sample_generator", "generate_bandpass", "params_to_event_list"]
+__all__ = ["make_sample_generator", "make_instance_sample_generator",
+           "generate_bandpass", "params_to_event_list"]
 
 
 def _as_range(value):
@@ -31,6 +32,14 @@ def _count_range(value):
     if isinstance(value, (list, tuple)):
         return int(value[0]), int(value[1])
     return int(value), int(value)
+
+
+def _count(g, lo, hi, b):
+    """(b,) event counts on the generator's device: ``lo``, or drawn
+    uniformly from [lo, hi]."""
+    if lo == hi:
+        return torch.full((b,), lo, dtype=torch.int64, device=g.device)
+    return torch.randint(lo, hi + 1, (b,), generator=g, device=g.device)
 
 
 def _integer_pow(x, y):
@@ -101,11 +110,6 @@ def make_sample_generator(num_channels, num_times, noise_level=1.0,
     bandpass = (generate_bandpass(nc, int(bandpass_order), dev)
                 if enable_bandpass else None)
 
-    def _count(g, lo, hi, b):
-        if lo == hi:
-            return torch.full((b,), lo, dtype=torch.int64, device=dev)
-        return torch.randint(lo, hi + 1, (b,), generator=g, device=dev)
-
     def sample_fn(batch, generator):
         g, b = generator, int(batch)
         if g.device.type != dev.type:
@@ -172,6 +176,97 @@ def make_sample_generator(num_channels, num_times, noise_level=1.0,
         waterfall = torch.complex(amplitude * torch.cos(phase),
                                   amplitude * torch.sin(phase))
         return waterfall, torch.stack(masks, dim=1), params
+
+    return sample_fn
+
+
+def make_instance_sample_generator(num_channels, num_times, noise_level=1.0,
+                                   rfi_power_min=1000.0, rfi_power_max=10000.0,
+                                   rfi_config=None, max_instances=None, device=None):
+    """Build ``sample_fn(batch, generator) -> dict`` with one ground-truth
+    mask per RFI event (the supervision SOLOLite trains on); the class id
+    of an event is its type's index in ``events.EVENT_TYPES``.
+
+    Args mirror the JAX package's; ``rfi_config`` maps event type ->
+    ``{"count": int | [min, max]}`` (default: one of each of the six
+    types). ``device``: ``None`` for the CUDA card; ``generator`` must be
+    a ``torch.Generator`` on that device.
+
+    Returns ``sample_fn`` producing, for ``batch`` samples:
+        waterfall: (batch, nc, nt) complex64, single polarisation
+        inst_masks: (batch, M, nc, nt) bool
+        inst_classes: (batch, M) int32
+        inst_valid: (batch, M) bool
+    where M is the sum of the types' highest counts; rows past a sample's
+    drawn count, and events occluded to no pixel, are invalid (their rows
+    all False, or empty).
+    """
+    dev = resolve_device(device)
+    nc, nt = int(num_channels), int(num_times)
+    noise_rng = _as_range(noise_level)
+    pmin_rng = _as_range(rfi_power_min)
+    pmax_rng = _as_range(rfi_power_max)
+    if rfi_config is None:
+        rfi_config = {t: {"count": 1} for t in E.EVENT_TYPES}
+    sep_counts = {}
+    for name in E.SEPARABLE_TYPES:
+        lo, hi = _count_range(rfi_config.get(name, {}).get("count", 0))
+        if hi > 0:
+            sep_counts[name] = (lo, hi)
+    sweep_lo, sweep_hi = _count_range(
+        rfi_config.get("frequency_sweep", {}).get("count", 0))
+    class_ids = {name: i for i, name in enumerate(E.EVENT_TYPES)}
+    total_sep = sum(hi for _, hi in sep_counts.values())
+    total_m = total_sep + sweep_hi
+    if max_instances is not None and total_m > max_instances:
+        raise ValueError(f"max event count {total_m} exceeds max_instances={max_instances}")
+
+    def sample_fn(batch, generator):
+        g, b = generator, int(batch)
+        if g.device.type != dev.type:
+            raise ValueError(f"generator on {g.device}, samples on {dev}")
+        noise = E._uniform(g, *noise_rng, (b, 1, 1))
+        pmin = E._uniform(g, *pmin_rng, (b, 1))
+        pmax = E._uniform(g, *pmax_rng, (b, 1))
+        baseline = noise + noise * 0.1 * torch.randn((b, nc, nt), generator=g, device=dev)
+        # the separable events' amplitudes, one draw for all types
+        amps = E._uniform(g, pmin, pmax, (b, total_sep)) * 1000.0  # Jy -> mJy
+        masks, classes, valids = [], [], []
+        for name, (lo, hi) in sep_counts.items():
+            draw, profile = E.SEPARABLE_TYPES[name]
+            count = _count(g, lo, hi, b)
+            f, t = profile(draw(g, (b, hi), nc, nt), nc, nt)  # (b, hi, nc), (b, hi, nt)
+            masks.append((f[..., :, None] > 0) & (t[..., None, :] > 0))
+            valids.append(torch.arange(hi, device=dev) < count[:, None])
+            classes.append(torch.full((b, hi), class_ids[name], dtype=torch.int32,
+                                      device=dev))
+        if sweep_hi > 0:
+            count = _count(g, sweep_lo, sweep_hi, b)
+            sweep_amps = E._uniform(g, pmin, pmax, (b, sweep_hi)) * 1000.0
+            amps = torch.cat([amps, sweep_amps], dim=1)
+            # one mask per sweep (frequency_sweep_accumulate ORs them)
+            masks.append(E.sweep_profile(E.draw_sweep(g, (b, sweep_hi), nc, nt), nc, nt))
+            valids.append(torch.arange(sweep_hi, device=dev) < count[:, None])
+            classes.append(torch.full((b, sweep_hi), class_ids["frequency_sweep"],
+                                      dtype=torch.int32, device=dev))
+        if masks:
+            inst_valid = torch.cat(valids, dim=1)
+            inst_masks = torch.cat(masks, dim=1) & inst_valid[..., None, None]
+            inst_classes = torch.cat(classes, dim=1)
+            signal = torch.einsum("bm,bmct->bct", amps * inst_valid,
+                                  inst_masks.to(torch.float32))
+        else:
+            inst_masks = torch.zeros((b, 0, nc, nt), dtype=torch.bool, device=dev)
+            inst_classes = torch.zeros((b, 0), dtype=torch.int32, device=dev)
+            inst_valid = torch.zeros((b, 0), dtype=torch.bool, device=dev)
+            signal = 0.0
+        # an instance occluded to zero pixels is invalid
+        inst_valid = inst_valid & inst_masks.flatten(2).any(dim=2)
+        amplitude = baseline + signal
+        phase = E._uniform(g, 0.0, 2.0 * torch.pi, (b, nc, nt))
+        waterfall = torch.complex(amplitude * torch.cos(phase), amplitude * torch.sin(phase))
+        return {"waterfall": waterfall, "inst_masks": inst_masks,
+                "inst_classes": inst_classes, "inst_valid": inst_valid}
 
     return sample_fn
 

@@ -1,8 +1,13 @@
 """Training: losses, the optimiser state, the train steps, ``Trainer``,
-the raw-patch ``RawPatchTrainer`` and the coherent 8-channel
-``CoherentTrainer``."""
+the raw-patch ``RawPatchTrainer``, the coherent 8-channel
+``CoherentTrainer`` and SOLOLite's ``InstanceTrainer``."""
 
 from .coherent_trainer import CoherentTrainer, coherent_batch
+from .instance_trainer import (
+    InstanceTrainer,
+    make_instance_fused_steps,
+    make_instance_train_step,
+)
 from .losses import bce_dice_loss, bce_with_logits_loss, dice_loss
 from .raw_patches import RawPatchTrainer, augment_batch, make_raw_patch_step
 from .trainer import (
@@ -35,4 +40,7 @@ __all__ = [
     "CoherentTrainer",
     "coherent_batch",
     "warmup_cosine_decay_schedule",
+    "InstanceTrainer",
+    "make_instance_train_step",
+    "make_instance_fused_steps",
 ]

@@ -34,7 +34,6 @@ JAX-only. ``export_params`` writes the JAX package's ``.npz`` inference
 snapshot, which both packages' ``load_params`` read.
 """
 
-import json
 import time
 from pathlib import Path
 
@@ -43,7 +42,7 @@ import torch
 
 from ..data.batched_dataset import ArrayDataset, StreamingDataset
 from ..evaluation.metrics import evaluate_segmentation_batch
-from ..models.convert import load_params, params_to_flax
+from ..models.convert import load_params, params_to_flax, save_params
 from ..models.unet import flax_init_
 from ..serving import predict_mask
 from ..utils.device import resolve_device
@@ -471,21 +470,7 @@ def export_params(state_or_model, path, metadata=None):
     ``metadata``. Returns ``path``."""
     model = getattr(state_or_model, "model", state_or_model)
     params, stats = params_to_flax(model)
-    arrays = {}
-
-    def flatten(prefix, tree):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                flatten(f"{prefix}/{k}", v)
-            else:
-                arrays[f"{prefix}/{k}"] = np.asarray(v)
-
-    flatten("params", params)
-    flatten("batch_stats", stats)
     meta = {"init_features": model.init_features, "norm": model.norm,
             "space_to_depth": model.space_to_depth, "in_channels": model.in_channels,
             **(metadata or {})}
-    arrays["__metadata__"] = np.bytes_(json.dumps(meta).encode())
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(path, **arrays)
-    return path
+    return save_params(path, params, stats, meta)

@@ -22,7 +22,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rfi_toolbox_tpu")
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "tools" / "torch_train_profile.py",
-                                         ROOT / "tools" / "conv_library_kernels.py"]
+                                         ROOT / "tools" / "conv_library_kernels.py",
+                                         ROOT / "tools" / "instance_grad_float64.py"]
 
 
 def test_import_leaves_jax_out():
@@ -38,10 +39,15 @@ def test_import_leaves_jax_out():
         "rfi_toolbox_tpu_torch.data.batched_dataset, rfi_toolbox_tpu_torch.native, "
         "rfi_toolbox_tpu_torch.synth.generator, rfi_toolbox_tpu_torch.train.raw_patches, "
         "rfi_toolbox_tpu_torch.synth.simulator, rfi_toolbox_tpu_torch.train.coherent_trainer, "
-        "rfi_toolbox_tpu_torch.io.flagging\n"
+        "rfi_toolbox_tpu_torch.io.flagging, rfi_toolbox_tpu_torch.models.instance, "
+        "rfi_toolbox_tpu_torch.train.instance_trainer, rfi_toolbox_tpu_torch.evaluation.instances\n"
         "from rfi_toolbox_tpu_torch.synth import RFISimulator\n"
         "from rfi_toolbox_tpu_torch.train import CoherentTrainer, coherent_batch\n"
         "from rfi_toolbox_tpu_torch.io import flag_waterfalls_coherent\n"
+        "from rfi_toolbox_tpu_torch.models import SOLOLite, matrix_nms, solo_decode, solo_loss\n"
+        "from rfi_toolbox_tpu_torch.train import InstanceTrainer\n"
+        "from rfi_toolbox_tpu_torch.evaluation import evaluate_instance_model, match_instances\n"
+        "from rfi_toolbox_tpu_torch.synth import make_instance_sample_generator\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
