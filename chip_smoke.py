@@ -5,7 +5,8 @@
 
 It drives the port's flagging service, its training main path, the
 train -> export -> serve loop, the file path (generator -> batch files ->
-streamed training), the raw-patch path and the coherent 8-channel path
+streamed training), the raw-patch path, the coherent 8-channel path, the
+SOLOLite instance path and the measurement-set path
 (``rfi_toolbox_tpu_torch``) on the card and fails (non-zero exit) if any
 phase fails:
 
@@ -181,6 +182,29 @@ phase fails:
     replaced by phase 5's patches; 20 steps timed for steps/s, the sample
     batch and the step apart; save -> InstanceTrainer.load -> predict
     equal to the trainer's own.
+22. the measurement-set path on a VLA-sized scan (``VLA_MS``: 27 antennas,
+    351 baselines, 4 pols, 2 SPWs of 256 channels joined into 512, 128
+    integrations; 92.0 M visibilities, 1.47 GB of complex128 DATA) in the
+    port's FakeMS, filled in place by inject_synthetic_data with
+    RFISimulator waterfalls made on the card (their masks the truth):
+    flag_measurement_set in bulk with method "mad" (K5), "model" (K4 +
+    UNet16) and "model8" (the GroupNorm coherent UNet16), the FLAG column
+    reset in place between runs; each written column equal to
+    flag_waterfalls (or flag_waterfalls_coherent) on the card on
+    MSLoader.load()'s data, and to the CPU's on 8 baselines (mad bit-equal,
+    the models on >= 99.9% of the pixels); use_pallas=False's mad flags
+    equal K5's; Mvis/s and the split of each run (load, to the card, card,
+    to the host, save); the copy to the card from pageable and from pinned
+    memory; IoU against the simulator's masks (no floor); compute_statistics,
+    compute_ffi and compute_calcquality of the mad flags on the card (ms)
+    against the CPU (medians and MADs bit-equal, the rest within 1e-5
+    relative or 1e-6);
+23. BASELINE config 5 (bench.py:675-697, ``CONFIG5_MS``): mad in bulk and
+    streaming, flags bit-equal, Mvis/s each; merge_existing keeps flags set
+    before; a ragged MS falls back to the streaming path and flags every
+    baseline; config 1 (bench.py:456-524): make_sample_generator B=4 x
+    1024^2 -> flag_waterfalls(mad) -> compute_ffi, waterfalls/s over 3
+    windows.
 
 Waterfalls/s is timed on the host clock over 3 windows of at least
 ``WINDOW_S`` seconds each (calls queued back to back, one synchronize at
@@ -194,11 +218,13 @@ after it. The line before the last is one JSON object with each kernel's
 launches, error, times and bound (K6a, K6b and K7 summed over their
 layers; the line before it lists the layers); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Budget: under
-5 minutes with the build. Writes only under build/ (the snapshot and
-checkpoints of phases 13 and 19, phase 14's batch files, some 1.8 GB,
-deleted at the end of each phase).
+8 minutes with the build (phase 22 some 3 minutes, most of it the CPU's
+sorts of 92 M entries; it holds some 6 GB of host memory). Writes only
+under build/ (the snapshot and checkpoints of phases 13 and 19, phase
+14's batch files, some 1.8 GB, deleted at the end of each phase).
 """
 
+import concurrent.futures
 import copy
 import ctypes
 import json
@@ -455,6 +481,26 @@ INST_TOL = 1e-4  # phase 20: scores, card vs CPU (TF32 off)
 INST_MODEL = {"num_classes": 6, "grid_size": 8, "features": 48, "embed_dim": 48}
 INST_STEPS, INST_CKPT, INST_TIMED = 60, 30, 20
 INST_CHECK_LR, INST_CHECK_BATCH = 8e-4, 8  # the card-vs-CPU step: the recipe's peak rate
+# Phases 22-23: the measurement-set path. Phase 22 flags a VLA-sized scan
+# (27 antennas: 351 cross baselines, 4 pols, 2 SPWs of 256 channels that the
+# loader joins into 512, 128 integrations: 92.0 M visibilities) held in the
+# port's FakeMS and filled by the RFISimulator on the card. A cut, if the
+# time limit ever forces one, takes integrations only and is printed.
+VLA_MS = {"num_antennas": 27, "channels_per_spw": (256, 256), "num_times": 128,
+          "num_pols": 4}
+MS_SEED = 20261017
+MS_CPU_BASELINES = 8  # baselines flagged on the CPU too
+MODEL8_SNAPSHOT = "pretrained/unet16gn_coherent8ch.npz"
+# statistics, card vs CPU: medians and MADs bit-equal, the rest float32
+# sums in another order (tests/test_torch_statistics.py's tolerance)
+STAT_RTOL, STAT_ATOL = 1e-5, 1e-6
+# Phase 23: BASELINE config 5 (bench.py:675-697) and config 1
+# (bench.py:456-524) at their own sizes
+CONFIG5_MS = {"num_antennas": 5, "channels_per_spw": (256,), "num_times": 256, "seed": 1}
+CONFIG1_B = 4
+CONFIG1_EVENTS = {"narrowband_persistent": {"count": 20}, "broadband_persistent": {"count": 5},
+                  "narrowband_bursty": {"count": 20}, "broadband_bursty": {"count": 5},
+                  "frequency_sweep": {"count": 1}}
 # Operations of K1's and K2's function a base pixel: the exact |z| (a
 # division, a float64 FMA, a square root: ~25), log10 (~20), atan2 (~40),
 # three gradients (~30), min/max, windows and affines (~35). A count of 60
@@ -705,6 +751,306 @@ def calls_per_s(fn):
 
 def rate_text(rate, lo, hi):
     return f"{rate:.4g} (windows {lo:.4g}-{hi:.4g})"
+
+
+def stats_agree(card, cpu, what):
+    """Card and CPU statistics dicts: medians and MADs (and the MAD
+    reduction, their ratio) bit-equal, the rest within STAT_RTOL or
+    STAT_ATOL."""
+    for k, want in cpu.items():
+        got = card[k]
+        if isinstance(want, dict):
+            stats_agree(got, want, f"{what} {k}")
+        elif k in ("median", "mad", "mad_reduction", "count"):
+            require(got == want, f"{what}: {k} {got!r} on the card, {want!r} on the CPU")
+        else:
+            require(abs(got - want) <= max(STAT_RTOL * abs(want), STAT_ATOL),
+                    f"{what}: {k} {got!r} on the card, {want!r} on the CPU")
+
+
+def host_ms(fn, repeats=3):
+    """Median host milliseconds of ``fn()`` and the card's work it
+    queued, over ``repeats`` calls."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def flag_column(ms):
+    """The FLAG cells of every row of a FakeMS, stacked."""
+    return np.stack([r["FLAG"] for r in ms.rows])
+
+
+def measurement_set_phases(kind, phases):
+    """Phases 22-23: the measurement-set path (FakeMS -> MSLoader ->
+    inject -> flag_measurement_set -> FLAG write-back -> FFI /
+    calcquality) on a VLA-sized scan, then BASELINE configs 5 and 1.
+    Returns the K4 and K5 launches of the runs through the entry points."""
+    from rfi_toolbox_tpu_torch.evaluation import (
+        compute_calcquality,
+        compute_ffi,
+        compute_statistics,
+        evaluate_segmentation,
+    )
+    from rfi_toolbox_tpu_torch.io import (
+        MSLoader,
+        flag_measurement_set,
+        flag_waterfalls,
+        flag_waterfalls_coherent,
+        inject_synthetic_data,
+        make_fake_ms,
+    )
+    from rfi_toolbox_tpu_torch.ops import fused_extract_channels, mad_flag_patches
+    from rfi_toolbox_tpu_torch.preprocess.pipeline import magnitude
+    from rfi_toolbox_tpu_torch.serving import CompiledPredictor
+    from rfi_toolbox_tpu_torch.synth import RFISimulator, make_sample_generator
+
+    dev = torch.device("cuda")
+    launches = {"K4": 0, "K5": 0}
+
+    def zero_counts():
+        fused_extract_channels.launches = 0
+        mad_flag_patches.launches = 0
+
+    def read_counts():
+        got = {"K4": fused_extract_channels.launches, "K5": mad_flag_patches.launches}
+        for k, v in got.items():
+            launches[k] += v
+        return got
+
+    # -- 22: the measurement-set round trip, a VLA-sized scan ------------------------------
+    t = time.perf_counter()
+    n_ant, n_t = VLA_MS["num_antennas"], VLA_MS["num_times"]
+    n_bl, n_pol = n_ant * (n_ant - 1) // 2, VLA_MS["num_pols"]
+    n_chan = sum(VLA_MS["channels_per_spw"])
+    n_vis = n_bl * n_pol * n_chan * n_t
+    t0 = time.perf_counter()
+    ms = make_fake_ms(**VLA_MS, seed=None)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim = RFISimulator(time_bins=n_t, freq_bins=n_chan, seed=MS_SEED)
+    tf, truth = sim.generate_rfi_device(n_bl, generator=torch.Generator(device=dev).manual_seed(MS_SEED))
+    # the simulator's (n, 4, T, F) -> the MS's (baselines, pols, channels, times)
+    vis = tf.transpose(-1, -2).cpu().numpy()
+    truth = truth.transpose(-1, -2).contiguous()
+    del tf
+    sim_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inject_synthetic_data(ms, vis, output_ms_path=ms)  # in place, split across the SPWs
+    inject_s = time.perf_counter() - t0
+    log(f"phase 22: a VLA-sized scan in the FakeMS: {n_ant} antennas ({n_bl} baselines), "
+        f"{n_pol} pols, SPWs {VLA_MS['channels_per_spw']} -> {n_chan} channels, {n_t} "
+        f"integrations (uncut): {len(ms.rows)} rows, {n_vis / 1e6:.2f} M visibilities, "
+        f"{n_vis * 16 / 1e9:.2f} GB of complex128 DATA; built in {build_s:.2f} s, simulated "
+        f"on the card in {sim_s:.2f} s (masked share {float(truth.float().mean()):.4f}), "
+        f"injected in {inject_s:.2f} s")
+
+    loader = MSLoader(ms)
+    t0 = time.perf_counter()
+    data = loader.load()
+    load_s = time.perf_counter() - t0
+    require(data.shape == (n_bl, n_pol, n_chan, n_t) and np.array_equal(data, vis),
+            "the loaded scan differs from the injected visibilities")
+    t0 = time.perf_counter()
+    c64 = data.astype(np.complex64)
+    cast_s = time.perf_counter() - t0
+    h2d = host_ms(lambda: torch.from_numpy(c64).to(dev), repeats=3)
+    t0 = time.perf_counter()
+    staging = torch.empty(c64.shape, dtype=torch.complex64, pin_memory=True)
+    pin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np.copyto(staging.numpy(), data, casting="same_kind")
+    cast_pinned_s = time.perf_counter() - t0
+    h2d_pinned = host_ms(lambda: staging.to(dev, non_blocking=True), repeats=3)
+    x = torch.from_numpy(c64).to(dev)  # the reference input on the card
+    require(torch.equal(x.cpu(), staging), "the pinned staging copy differs")
+    del staging, vis
+    planes = x.reshape(-1, n_chan, n_t)
+    cpu_x = torch.from_numpy(c64[:MS_CPU_BASELINES])
+    cpu_planes = cpu_x.reshape(-1, n_chan, n_t)
+    log(f"  host: load {load_s:.2f} s, complex128 -> complex64 {cast_s:.3f} s; to the card: "
+        f"pageable {h2d:.1f} ms ({c64.nbytes / h2d / 1e6:.2f} GB/s); a pinned staging buffer "
+        f"{pin_s:.3f} s to allocate, the cast into it {cast_pinned_s:.3f} s, its copy "
+        f"{h2d_pinned:.1f} ms ({c64.nbytes / h2d_pinned / 1e6:.2f} GB/s)")
+
+    truth4 = truth[:, None].expand(n_bl, n_pol, n_chan, n_t)
+    methods = (
+        ("mad", None, None),
+        ("model", CompiledPredictor.from_snapshot(SNAPSHOTS[0], batch_size=BATCH),
+         CompiledPredictor.from_snapshot(SNAPSHOTS[0], batch_size=CPU_PREDICT_BATCH,
+                                         device="cpu")),
+        ("model8", CompiledPredictor.from_snapshot(MODEL8_SNAPSHOT, batch_size=BATCH),
+         CompiledPredictor.from_snapshot(MODEL8_SNAPSHOT, batch_size=CPU_PREDICT_BATCH,
+                                         device="cpu")),
+    )
+    written = {}
+    cpu_stats = None
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    for method, pred, cpu_pred in methods:
+        for r in ms.rows:  # reset the FLAG column in place: no copy of the scan
+            r["FLAG"][...] = False
+        timings = {}
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = flag_measurement_set(ms, method=method, sigma=SIGMA, predictor=pred,
+                                   timings=timings)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        got = loader.load_flags()
+        written[method] = got
+        # the card's flag_waterfalls on the loaded data, and the CPU on 8 baselines
+        if method == "model8":
+            ref = flag_waterfalls_coherent(x, pred)[:, None].expand_as(x)
+            cpu = flag_waterfalls_coherent(cpu_x, cpu_pred, device="cpu")[:, None]
+        else:
+            ref = flag_waterfalls(planes, method=method, sigma=SIGMA, predictor=pred)
+            cpu = flag_waterfalls(cpu_planes, method=method, sigma=SIGMA, predictor=cpu_pred,
+                                  device="cpu")
+        ref = ref.reshape(x.shape).cpu().numpy()
+        cpu = cpu.reshape(MS_CPU_BASELINES, -1, n_chan, n_t).expand(
+            MS_CPU_BASELINES, n_pol, n_chan, n_t).numpy()
+        cpu_agree = float((got[:MS_CPU_BASELINES] == cpu).mean())
+        m = evaluate_segmentation(torch.from_numpy(got).to(dev), truth4)
+        split = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+        log(f"  flag_measurement_set(method={method!r}): {wall:.2f} s, "
+            f"{n_vis / wall / 1e6:.3f} Mvis/s on {kind}; split (s): {split}; launches "
+            f"K4 {counts['K4']}, K5 {counts['K5']}; {res['baselines']} baselines, flagged "
+            f"{res['flagged_fraction']:.4f}; IoU against the simulator's masks {m['iou']:.4f} "
+            f"(P {m['precision']:.4f}, R {m['recall']:.4f}; no floor); the written column "
+            f"equals the card's flag_waterfalls: {np.array_equal(got, ref)}; the CPU's on "
+            f"{MS_CPU_BASELINES} baselines on {cpu_agree:.6f} of the pixels")
+        require(res["baselines"] == n_bl and not res["failed"], f"{method}: baselines")
+        require(np.array_equal(got, ref),
+                f"{method}: the written FLAG column differs from flag_waterfalls on the card")
+        if method == "mad":
+            require(counts == {"K4": 0, "K5": 1}, "the MS's mad run did not launch K5 once")
+            require(cpu_agree == 1.0, "mad: the card's flags differ from the CPU's (K5 vs plain)")
+            plain = flag_waterfalls(planes, method="mad", sigma=SIGMA, use_pallas=False)
+            require(np.array_equal(plain.reshape(x.shape).cpu().numpy(), got),
+                    "use_pallas=False: the plain MAD flags differ from K5's")
+            log("  use_pallas=False (the plain MAD on the card): flags equal K5's")
+
+            def stats_on_cpu(flags=got):  # some minutes of CPU sorts, beside the model runs
+                t0 = time.perf_counter()
+                out = {"statistics": compute_statistics(data, flags, device="cpu"),
+                       "ffi": compute_ffi(data, flags, device="cpu"),
+                       "calcquality": compute_calcquality(data, flags, device="cpu")}
+                return out, time.perf_counter() - t0
+
+            cpu_stats = pool.submit(stats_on_cpu)
+        else:
+            require(cpu_agree >= MASK_AGREE, f"{method}: the card's flags differ from the CPU's")
+            require(counts == {"K4": int(method == "model"), "K5": 0},
+                    f"{method}: kernel launches {counts}")
+    del ref, cpu, methods
+
+    # the statistics of the mad run's flags, card against CPU
+    flags = torch.from_numpy(written["mad"]).to(dev)
+    card = {"statistics": compute_statistics(x, flags), "ffi": compute_ffi(x, flags),
+            "calcquality": compute_calcquality(x, flags)}
+    stat_ms = {"statistics": host_ms(lambda: compute_statistics(x, flags)),
+               "ffi": host_ms(lambda: compute_ffi(x, flags)),
+               "calcquality": host_ms(lambda: compute_calcquality(x, flags))}
+    mag = magnitude(x).reshape(-1)
+    sort_ms = cuda_ms(lambda: torch.sort(mag), calls=3, windows=3)
+    del mag
+    cpu, cpu_s = cpu_stats.result()
+    pool.shutdown()
+    for name in card:
+        stats_agree(card[name], cpu[name], name)
+    other = {k: compute_ffi(x, torch.from_numpy(v).to(dev))["ffi"]
+             for k, v in written.items() if k != "mad"}
+    st, ffi, cq = card["statistics"], card["ffi"], card["calcquality"]
+    log(f"  statistics of the mad flags over {n_vis / 1e6:.1f} M entries on {kind}: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in stat_ms.items())
+        + f" (host clock; one torch.sort of the {n_vis / 1e6:.1f} M magnitudes {sort_ms:.2f} "
+        f"ms); "
+        f"median {st['median']:.6g}, MAD {st['mad']:.6g}, FFI {ffi['ffi']:.6f} (MAD "
+        f"reduction {ffi['mad_reduction']:.6f}, std {ffi['std_reduction']:.6f}), calcquality "
+        f"{cq['calcquality']:.6f}; the CPU ({cpu_s:.1f} s, beside the model runs) agrees (medians and MADs "
+        f"bit-equal); FFI of the model flags {other['model']:.6f}, model8 "
+        f"{other['model8']:.6f}")
+    loader.close()
+    del x, planes, flags, data, c64, written, ms, loader, truth, truth4
+    phases["MS round trip"] = time.perf_counter() - t
+
+    # -- 23: BASELINE configs 5 and 1 at their own sizes -------------------------------------
+    t = time.perf_counter()
+    base = make_fake_ms(**CONFIG5_MS)
+    nrows, nchan5 = CONFIG5_MS["num_times"], CONFIG5_MS["channels_per_spw"][0]
+    n_bl5 = CONFIG5_MS["num_antennas"] * (CONFIG5_MS["num_antennas"] - 1) // 2
+    n5 = n_bl5 * 4 * nchan5 * nrows
+    flag_measurement_set(base.copy(), method="mad", sigma=SIGMA)  # warm-up, as bench.py
+    runs = {}
+    for mode in ("bulk", "streaming"):
+        ms = base.copy()
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = flag_measurement_set(ms, method="mad", sigma=SIGMA, streaming=mode == "streaming")
+        runs[mode] = (ms, res, time.perf_counter() - t0, read_counts()["K5"])
+    (bulk, rb, sb, kb), (stream, rs, ss, ks) = runs["bulk"], runs["streaming"]
+    require(np.array_equal(flag_column(bulk), flag_column(stream)),
+            "config 5: bulk and streaming wrote different flags")
+    require(rb["baselines"] == rs["baselines"] == n_bl5 and kb == 1 and ks == n_bl5,
+            "config 5: baselines or K5 launches")
+    # flags set beforehand survive merge_existing
+    merged = base.copy()
+    pre = np.zeros((4, nchan5, nrows), bool)
+    pre[:, ::7, ::5] = True
+    MSLoader(merged).save_baseline_flags(0, 1, pre)
+    zero_counts()
+    flag_measurement_set(merged, method="mad", sigma=SIGMA, merge_existing=True)
+    k_merge = read_counts()["K5"]
+    want = flag_column(bulk)
+    want[:nrows] |= np.moveaxis(pre, -1, 0)  # baseline (0, 1) holds the first rows
+    require(np.array_equal(flag_column(merged), want), "config 5: merge_existing lost flags")
+    # a ragged observation: baseline (0, 1) loses its last 32 integrations
+    ragged = base.copy()
+    ragged.rows = [r for r in ragged.rows if not (
+        r["ANTENNA1"] == 0 and r["ANTENNA2"] == 1 and r["TIME"] >= 5e9 + nrows - 32)]
+    zero_counts()
+    rr = flag_measurement_set(ragged, method="mad", sigma=SIGMA)
+    k_ragged = read_counts()["K5"]
+    ld = MSLoader(ragged)
+    short = flag_waterfalls(ld.load_baseline(0, 1), method="mad", sigma=SIGMA)
+    require(rr["baselines"] == n_bl5 and not rr["failed"] and k_ragged == n_bl5
+            and np.array_equal(ld.load_baseline_flags(0, 1), short.cpu().numpy())
+            and np.array_equal(flag_column(ragged)[nrows - 32:], flag_column(bulk)[nrows:]),
+            "config 5: the ragged MS was not flagged baseline by baseline")
+    log(f"phase 23: config 5 ({CONFIG5_MS['num_antennas']} antennas, {nchan5} channels x "
+        f"{nrows} integrations, 4 pols: {n5 / 1e6:.2f} M visibilities) "
+        f"on {kind}: bulk {sb:.3f} s, {n5 / sb / 1e6:.3f} Mvis/s (K5 {kb}); streaming "
+        f"{ss:.3f} s, {n5 / ss / 1e6:.3f} Mvis/s (K5 {ks}); flags bit-equal, flagged "
+        f"{rb['flagged_fraction']:.5f}; merge_existing keeps the flags set before (K5 "
+        f"{k_merge}); a ragged MS (baseline (0, 1) short by 32 integrations) takes the "
+        f"streaming path: {rr['baselines']} baselines, K5 {k_ragged}")
+
+    sample_fn = make_sample_generator(SIDE, SIDE, rfi_config=CONFIG1_EVENTS,
+                                      num_polarizations=1)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def config1():
+        wf = sample_fn(CONFIG1_B, g)[0][:, 0]
+        return compute_ffi(wf, flag_waterfalls(wf, method="mad", sigma=SIGMA))
+
+    config1()  # warm-up
+    zero_counts()
+    rate, lo, hi, calls, out = calls_per_s(config1)
+    k_c1 = read_counts()["K5"]
+    require(k_c1 == calls and np.isfinite(out["ffi"]), "config 1: K5 launches or FFI")
+    log(f"  config 1 (make_sample_generator B={CONFIG1_B} x {SIDE}^2, one pol -> "
+        f"flag_waterfalls mad -> compute_ffi) on {kind}: waterfalls/s "
+        f"{rate_text(CONFIG1_B * rate, CONFIG1_B * lo, CONFIG1_B * hi)} in {calls} calls; "
+        f"K5 {k_c1}; last FFI {out['ffi']:.4f}")
+    phases["configs 5 and 1"] = time.perf_counter() - t
+    return launches
 
 
 def main():
@@ -2361,6 +2707,9 @@ def main():
     shutil.rmtree(inst_dir)
     phases["instance training"] = time.perf_counter() - t
 
+    # -- 22-23: the measurement-set path, then BASELINE configs 5 and 1 -----------------------
+    ms_launches = measurement_set_phases(kind, phases)
+
     log("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total wall time {time.perf_counter() - T_START:.1f} s")
     static_json = []
@@ -2405,13 +2754,14 @@ def main():
          "source": "rfi_toolbox_tpu_torch/ops/csrc/channel_planes.cu",
          "replaces": "rfi_toolbox_tpu/ops/fused_channels.py:455",
          "launches": k4_launches + universal_launches + inst_eval_launches
-         + inst_train_launches, "max_abs_err": max(k4_err.values()),
+         + inst_train_launches + ms_launches["K4"], "max_abs_err": max(k4_err.values()),
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_bound_by, "library_ms": None},
         {"name": "mad_flag_patches", "route": "cuda",
          "source": "rfi_toolbox_tpu_torch/ops/csrc/mad_flags.cu",
          "replaces": "rfi_toolbox_tpu/ops/mad_flags.py:132",
-         "launches": k5_launches, "max_abs_err": float(max(k5_diff.values())),
+         "launches": k5_launches + ms_launches["K5"],
+         "max_abs_err": float(max(k5_diff.values())),
          "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound * 1e3,
          "bound_by": "bytes", "library_ms": None},
     ]

@@ -12,7 +12,8 @@ they raise instead of falling back.
 
 Subpackages (the slices ported so far: flagging, the training main
 path, train -> export -> serve, training from files and raw patches, the
-coherent 8-channel path, and the SOLOLite instance path):
+coherent 8-channel path, the SOLOLite instance path, and the
+measurement-set path):
 - utils: device resolution, the float32 precision switch, progress bars
 - preprocess: the plain pipeline (the plain versions of the kernels),
   the static virtual-augmentation prep, ``Preprocessor`` and the
@@ -25,15 +26,19 @@ coherent 8-channel path, and the SOLOLite instance path):
   per event), ``SyntheticDataGenerator``, which writes datasets to disk,
   and the coherent ``RFISimulator``
 - data: ``ArrayDataset``, the batch-file writer ``BatchWriter``, the
-  bounded-memory reader ``StreamingDataset`` and ``load_batches``
+  bounded-memory reader ``StreamingDataset``, ``load_batches`` and the
+  sample-directory ``RFIMaskDataset``
 - native: the threaded ``.npy`` reader (C++, built with g++ on first use)
 - train: losses, the optax-equivalent optimiser, the train steps,
   ``Trainer`` (in memory or streamed from batch files),
   ``RawPatchTrainer``, ``CoherentTrainer`` and ``InstanceTrainer``
 - serving: fixed-batch segmentation predictor
-- io: ``flag_waterfalls``, ``flag_waterfalls_coherent``
+- io: ``flag_waterfalls``, ``flag_waterfalls_coherent``, the
+  Measurement Set reader ``MSLoader`` (casatools, optional, or the
+  in-memory ``FakeMS``), ``inject_synthetic_data`` and
+  ``flag_measurement_set`` (load -> flag on the card -> FLAG write-back)
 - evaluation: segmentation metrics; instance matching and the held-out
-  evaluation of ``InstanceTrainer``
+  evaluation of ``InstanceTrainer``; MAD, FFI and calcquality statistics
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
-"""Dataset containers and on-disk batch storage (``RFIMaskDataset`` waits
-for the port of the measurement-set reader)."""
+"""Dataset containers, on-disk batch storage, and the sample-directory
+``RFIMaskDataset`` (from a Measurement Set too)."""
 
 from .batched_dataset import (
     ArrayDataset,
@@ -8,6 +8,7 @@ from .batched_dataset import (
     TorchDataset,
     load_batches,
 )
+from .rfi_mask_dataset import RFIMaskDataset
 
 __all__ = [
     "ArrayDataset",
@@ -15,4 +16,5 @@ __all__ = [
     "BatchWriter",
     "StreamingDataset",
     "load_batches",
+    "RFIMaskDataset",
 ]

@@ -1,4 +1,5 @@
-"""Segmentation metrics, and the instance metrics of SOLOLite."""
+"""Segmentation metrics, the instance metrics of SOLOLite, and the
+flagging-quality statistics (MAD, FFI, calcquality)."""
 
 from .instances import evaluate_instance_model, match_instances
 from .metrics import (
@@ -11,6 +12,13 @@ from .metrics import (
     evaluate_segmentation,
     evaluate_segmentation_batch,
 )
+from .statistics import (
+    compute_calcquality,
+    compute_ffi,
+    compute_mad,
+    compute_statistics,
+    print_statistics_comparison,
+)
 
 __all__ = [
     "confusion_counts",
@@ -21,6 +29,11 @@ __all__ = [
     "compute_dice",
     "evaluate_segmentation",
     "evaluate_segmentation_batch",
+    "compute_mad",
+    "compute_statistics",
+    "compute_ffi",
+    "compute_calcquality",
+    "print_statistics_comparison",
     "match_instances",
     "evaluate_instance_model",
 ]

@@ -1,4 +1,4 @@
-"""Waterfall flagging on the card.
+"""Waterfall and measurement-set flagging on the card.
 
 Counterpart of ``rfi_toolbox_tpu/io/flagging.py``:
 
@@ -7,19 +7,38 @@ Counterpart of ``rfi_toolbox_tpu/io/flagging.py``:
   predictor -> unpatchify;
 - ``flag_waterfalls_coherent``: the coherent 8-channel convention, all
   four polarisations of a baseline through one 8-channel model, one mask
-  a baseline.
+  a baseline;
+- ``flag_measurement_set``: a whole Measurement Set, loaded on the host
+  (``MSLoader``), flagged on the card and written back to its FLAG
+  column, in bulk or baseline by baseline with a prefetch thread.
 
-The mesh-sharded path and ``flag_measurement_set`` are not ported yet.
+Complex visibilities go to the card as complex64 as they are (JAX stages
+them as two real planes for TPU runtimes that cannot copy complex types;
+the card can). The mesh-sharded path (``mesh=``) is not ported yet.
 """
 
+import logging
+import threading
+import time
+
+import numpy as np
 import torch
 
-from ..ops import fused_extract_channels, mad_flag_patches
+from ..ops import (
+    fused_extract_channels,
+    fused_extract_channels_plain,
+    mad_flag_patches,
+    mad_flag_patches_plain,
+)
 from ..preprocess import pipeline as P
 from ..train.coherent_trainer import robust_scale, to_8ch
 from ..utils.device import resolve_device
+from ..utils.progress import progress
+from .ms_loader import MSLoader
 
-__all__ = ["flag_waterfalls", "flag_waterfalls_coherent"]
+logger = logging.getLogger(__name__)
+
+__all__ = ["flag_measurement_set", "flag_waterfalls", "flag_waterfalls_coherent"]
 
 
 def _as_waterfalls(waterfalls, device):
@@ -34,7 +53,7 @@ def _as_waterfalls(waterfalls, device):
 
 
 def flag_waterfalls(waterfalls, method="mad", sigma=5.0, patch_size=128,
-                    predictor=None, threshold=0.5, device=None):
+                    predictor=None, threshold=0.5, use_pallas="auto", device=None):
     """Flag a batch of waterfalls.
 
     Args:
@@ -46,11 +65,18 @@ def flag_waterfalls(waterfalls, method="mad", sigma=5.0, patch_size=128,
         predictor: for ``method="model"``, a callable (N, p, p, 3) float32
             tensor -> (N, p, p) bool or probabilities (cut at
             ``threshold``), e.g. :class:`~rfi_toolbox_tpu_torch.serving.CompiledPredictor`.
+        use_pallas: ``"auto"`` or True calls the kernel wrappers (K5, K4),
+            which launch the kernel on a CUDA tensor and run its plain
+            version on a CPU tensor; False asks for the plain versions on
+            any device (the JAX argument's name and meaning).
         device: ``None`` for the CUDA card, or e.g. ``"cpu"``.
 
     Returns:
         (M, C, T) bool tensor on the device.
     """
+    if use_pallas not in ("auto", True, False):
+        raise ValueError(f"use_pallas must be 'auto', True or False, got {use_pallas!r}")
+    kernels = use_pallas is not False
     dev = resolve_device(device)
     flat = _as_waterfalls(waterfalls, dev)
     m, c, t = flat.shape
@@ -58,12 +84,12 @@ def flag_waterfalls(waterfalls, method="mad", sigma=5.0, patch_size=128,
     patches = P.patchify_batch(flat, patch_size).contiguous() if patched else flat
 
     if method == "mad":
-        flags = mad_flag_patches(patches, sigma)
+        flags = (mad_flag_patches if kernels else mad_flag_patches_plain)(patches, sigma)
     elif method == "model":
         if predictor is None:
             raise ValueError("method='model' requires a predictor")
-        preds = torch.as_tensor(predictor(fused_extract_channels(patches)),
-                                device=dev)
+        extract = fused_extract_channels if kernels else fused_extract_channels_plain
+        preds = torch.as_tensor(predictor(extract(patches)), device=dev)
         flags = preds if preds.dtype == torch.bool else preds > threshold
     else:
         raise ValueError(f"Unknown method '{method}' (use 'mad' or 'model')")
@@ -121,3 +147,170 @@ def coherent_images(vis4, patch_size):
         ones = torch.ones((1, c, t), device=vis4.device)
         valid = (P.patchify_batch(ones, p) > 0).repeat(b, 1, 1)[..., None]
     return robust_scale(x, valid)
+
+
+class _Stages:
+    """Host seconds of ``flag_measurement_set``'s stages, summed into the
+    caller's dict (None: nothing is timed and the card is not waited
+    for)."""
+
+    def __init__(self, out, device):
+        self.out = out
+        self.sync = out is not None and device.type == "cuda"
+        self.t = time.perf_counter()
+
+    def mark(self, stage):
+        if self.out is None:
+            return
+        if self.sync:
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.out[stage] = self.out.get(stage, 0.0) + now - self.t
+        self.t = now
+
+
+def _flag_block(vis, method, sigma, patch_size, predictor, threshold, use_pallas,
+                dev, stages):
+    """(B, P, C, T) complex128 host visibilities -> (B, P, C, T) bool host
+    flags: one cast to complex64 on the host, one copy to the card, one
+    flagging call, one copy back."""
+    b, p, c, t = vis.shape
+    x = torch.from_numpy(vis.astype(np.complex64)).to(dev)
+    stages.mark("to_card")
+    if method == "model8":
+        if predictor is None:
+            raise ValueError("method='model8' requires a predictor")
+        if p != 4:
+            raise ValueError(f"method='model8' needs 4 polarizations, MS has {p}")
+        flags = flag_waterfalls_coherent(x, predictor, patch_size=patch_size,
+                                         threshold=threshold, device=dev)
+        stages.mark("card")
+        # one (C, T) mask a baseline, shared by the 4 pols
+        flags = np.broadcast_to(flags.cpu().numpy()[:, None], (b, p, c, t)).copy()
+    else:
+        flags = flag_waterfalls(x.reshape(b * p, c, t), method=method, sigma=sigma,
+                                patch_size=patch_size, predictor=predictor,
+                                threshold=threshold, use_pallas=use_pallas,
+                                device=dev)
+        stages.mark("card")
+        flags = flags.cpu().numpy().reshape(b, p, c, t)
+    stages.mark("to_host")
+    return flags
+
+
+def flag_measurement_set(ms, method="mad", sigma=5.0, patch_size=128, predictor=None,
+                         threshold=0.5, num_antennas=None, mode="DATA", field_id=None,
+                         merge_existing=False, use_pallas="auto", streaming=False,
+                         device=None, timings=None):
+    """Flag an entire measurement set and write the FLAG column back.
+
+    Two modes:
+
+    - bulk (default): one ``MSLoader.load`` (one query and one getcol a
+      SPW), all baselines x pols flagged in one call on the card, one
+      ``save_flags``. An MS the bulk layout cannot hold (a baseline with
+      missing integrations: ``load`` raises ``ValueError``) is flagged in
+      the streaming mode instead;
+    - ``streaming=True``: baseline by baseline, a prefetch thread loading
+      baseline i+1 on the host while the card flags baseline i; a
+      baseline whose load fails is reported in ``failed`` and skipped.
+
+    Args:
+        ms: MS path (casatools) or :class:`~rfi_toolbox_tpu_torch.io.fake_ms.FakeMS`.
+        method: ``"mad"`` or ``"model"`` (see :func:`flag_waterfalls`), or
+            ``"model8"``: the coherent 8-channel convention
+            (:func:`flag_waterfalls_coherent`), one mask a time-frequency
+            cell written to all 4 pols, with an 8-channel predictor such as
+            ``CompiledPredictor.from_snapshot("pretrained/unet16gn_coherent8ch.npz")``.
+        num_antennas: limit the ANTENNA1 loop (the reference's semantics).
+        merge_existing: OR the new flags into the existing FLAG column.
+        use_pallas: see :func:`flag_waterfalls`.
+        device: ``None`` for the CUDA card, or e.g. ``"cpu"``.
+        timings: optional dict; the host seconds of each stage are added
+            to it under ``load``, ``to_card``, ``card``, ``to_host`` and
+            ``save`` (the card is waited for at each stage's end).
+
+    Returns:
+        dict: {'baselines': int, 'flagged_fraction': float, 'failed': [...]}
+    """
+    dev = resolve_device(device)
+    stages = _Stages(timings, dev)
+    args = dict(method=method, sigma=sigma, patch_size=patch_size, predictor=predictor,
+                threshold=threshold, use_pallas=use_pallas, dev=dev, stages=stages)
+    loader = MSLoader(ms, field_id=field_id)
+    if not streaming:
+        try:
+            data = loader.load(num_antennas=num_antennas, mode=mode)
+        except ValueError as e:
+            # a ragged observation (an antenna offline for part of the
+            # run): the bulk layout cannot hold it; the per-baseline path
+            # can, and reports bad baselines in 'failed'
+            logger.warning("bulk load failed (%s); falling back to per-baseline "
+                           "streaming", e)
+            loader.close()
+            return flag_measurement_set(
+                ms, method=method, sigma=sigma, patch_size=patch_size,
+                predictor=predictor, threshold=threshold, num_antennas=num_antennas,
+                mode=mode, field_id=field_id, merge_existing=merge_existing,
+                use_pallas=use_pallas, streaming=True, device=device, timings=timings)
+        stages.mark("load")
+        if len(data) == 0:
+            loader.close()
+            return {"baselines": 0, "flagged_fraction": 0.0, "failed": []}
+        flags = _flag_block(data, **args)
+        if merge_existing:
+            flags |= loader.load_flags()
+        loader.save_flags(flags)
+        loader.close()
+        stages.mark("save")
+        return {"baselines": data.shape[0], "flagged_fraction": float(flags.mean()),
+                "failed": []}
+
+    pairs = [(i, j) for i in range(num_antennas or loader.num_antennas)
+             for j in range(i + 1, loader.num_antennas)]
+    if not pairs:
+        loader.close()
+        return {"baselines": 0, "flagged_fraction": 0.0, "failed": []}
+
+    # the prefetch thread only reads the MS on the host; all work on the
+    # card stays on this thread
+    loaded = {}
+
+    def load_one(pair):
+        try:
+            loaded[pair] = loader.load_baseline(pair[0], pair[1], mode=mode,
+                                                field_id=field_id)
+        except Exception as e:  # surfaced per baseline in the result
+            loaded[pair] = e
+
+    total_flagged = 0.0
+    total_pixels = 0
+    n_done = 0
+    failed = []
+    prefetch = threading.Thread(target=load_one, args=(pairs[0],))
+    prefetch.start()
+    for idx, pair in progress(list(enumerate(pairs)), desc="Baselines", total=len(pairs)):
+        prefetch.join()
+        data = loaded.pop(pair)
+        if idx + 1 < len(pairs):
+            prefetch = threading.Thread(target=load_one, args=(pairs[idx + 1],))
+            prefetch.start()
+        stages.mark("load")
+        if isinstance(data, Exception):
+            logger.warning("baseline %s load failed: %s", pair, data)
+            failed.append({"baseline": pair, "error": str(data)})
+            continue
+        if data.shape[-1] == 0:
+            continue
+        flags = _flag_block(data[None], **args)[0]
+        if merge_existing:
+            flags |= loader.load_baseline_flags(pair[0], pair[1], field_id=field_id)
+        loader.save_baseline_flags(pair[0], pair[1], flags, field_id=field_id)
+        stages.mark("save")
+        total_flagged += float(flags.sum())
+        total_pixels += flags.size
+        n_done += 1
+
+    loader.close()
+    return {"baselines": n_done, "flagged_fraction": total_flagged / max(total_pixels, 1),
+            "failed": failed}
