@@ -6,9 +6,9 @@
 It drives the port's flagging service, its training main path, the
 train -> export -> serve loop, the file path (generator -> batch files ->
 streamed training), the raw-patch path, the coherent 8-channel path, the
-SOLOLite instance path and the measurement-set path
-(``rfi_toolbox_tpu_torch``) on the card and fails (non-zero exit) if any
-phase fails:
+SOLOLite instance path, the measurement-set path and the command-line
+entry points (``rfi_toolbox_tpu_torch``) on the card and fails (non-zero
+exit) if any phase fails:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: one nvcc per source, all started together, and one link build
@@ -204,7 +204,29 @@ phase fails:
     before; a ragged MS falls back to the streaming path and flags every
     baseline; config 1 (bench.py:456-524): make_sample_generator B=4 x
     1024^2 -> flag_waterfalls(mad) -> compute_ffi, waterfalls/s over 3
-    windows.
+    windows;
+24. the command-line path, each command's ``main(argv)`` in this process
+    under ``CLI_ROOT`` (removed after): (a) generate_rfi_dataset, 16 + 4
+    samples of 1024^2 in batches of 4 (0.66 GB): the file tree, shapes
+    and dtypes, sample 0 bit-equal to generate_rfi_device with the same
+    generator, s a sample split into the card's part and the writes';
+    (b) normalize_rfi_data robust_scale on the validation split, equal to
+    normalize_array; (c) train_rfi_model --config unet_default.yaml
+    --batch_size 8 (UNet32 bf16 on 8 x 1024^2, 8 input channels) for 2
+    epochs, then --checkpoint_path to epoch 3: finite losses, s an epoch,
+    images/s; (d) evaluate_rfi_model on (c)'s checkpoint, with and without
+    --tta, and on unet16_coherent8ch.npz over 2 normalized samples, card
+    against --device cpu within 1e-4; (e) --instance at the recipe (f=48,
+    patch 128, batch 64) for 40 steps, checkpoints every 20, export, then
+    --auto_resume from step_40.pt to 60; evaluate_rfi_model --instance on
+    the export and on sololite_synthetic.npz with the all-six mix, each
+    equal to evaluate_instance_model(InstanceTrainer.load(...)); K4 once a
+    step and an evaluation batch; (f) --coherent (UNet24, 256^2, batch 16)
+    40 steps, export, --auto_resume to 60; evaluate_rfi_model --coherent
+    on the export and on unet24gn_coherent8ch.npz over phase 17(a)'s 64
+    samples at its threshold, held to phase 17(a)'s floor; (g)
+    --mesh_shape 2,1 refused; (h) visualize_rfi_data's predictor against
+    Trainer.predict (the drawing is left to the CPU tests).
 
 Waterfalls/s is timed on the host clock over 3 windows of at least
 ``WINDOW_S`` seconds each (calls queued back to back, one synchronize at
@@ -218,10 +240,11 @@ after it. The line before the last is one JSON object with each kernel's
 launches, error, times and bound (K6a, K6b and K7 summed over their
 layers; the line before it lists the layers); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. Budget: under
-8 minutes with the build (phase 22 some 3 minutes, most of it the CPU's
+10 minutes with the build (phase 22 some 3 minutes, most of it the CPU's
 sorts of 92 M entries; it holds some 6 GB of host memory). Writes only
 under build/ (the snapshot and checkpoints of phases 13 and 19, phase
-14's batch files, some 1.8 GB, deleted at the end of each phase).
+14's batch files, some 1.8 GB, phase 24's dataset and checkpoints, some
+0.8 GB, deleted at the end of each phase).
 """
 
 import concurrent.futures
@@ -501,6 +524,24 @@ CONFIG1_B = 4
 CONFIG1_EVENTS = {"narrowband_persistent": {"count": 20}, "broadband_persistent": {"count": 5},
                   "narrowband_bursty": {"count": 20}, "broadband_bursty": {"count": 5},
                   "frequency_sweep": {"count": 1}}
+# Phase 24: the command-line path. generate_rfi_dataset at its published
+# widths (1024 x 1024, the command's defaults), cut in depth from 1000 + 200
+# samples to 16 + 4 (0.66 GB on disk); train_rfi_model at
+# configs/training/unet_default.yaml's width (UNet32 bf16), its batch of 32 cut
+# to 8 (at 32 one bf16 activation of 32 channels at 1024^2 is 2.1 GB, and the
+# first and last stages hold 15-25 of them with the backward pass) and its 50
+# epochs to 2, then 1 more resumed; the --instance and --coherent recipes at
+# their widths, cut from 36 000 steps to 40, then 20 more resumed.
+CLI_ROOT = Path("build/chip_smoke_cli")
+CLI_SEED = 20261017
+CLI_SAMPLES = (16, 4)  # training, validation
+CLI_SIDE, CLI_GEN_BATCH, CLI_TRAIN_BATCH, CLI_EPOCHS = 1024, 4, 8, 2
+CLI_STEPS, CLI_CKPT, CLI_STEPS_RESUMED = 40, 20, 60
+CLI_EVAL_IMAGES = 64  # the instance evaluations' held-out images
+CLI_EVAL_SNAPSHOT, CLI_EVAL_SAMPLES = "pretrained/unet16_coherent8ch.npz", 2
+CLI_DEVICE_TOL = 1e-4  # evaluate_rfi_model's metrics, card vs CPU (TF32 off)
+CLI_COHERENT_SNAPSHOT = "pretrained/unet24gn_coherent8ch.npz"
+ALL_SIX_YAML = "configs/evaluation/all_six_events.yaml"
 # Operations of K1's and K2's function a base pixel: the exact |z| (a
 # division, a float64 FMA, a square root: ~25), log10 (~20), atan2 (~40),
 # three gradients (~30), min/max, windows and affines (~35). A count of 60
@@ -1050,6 +1091,348 @@ def measurement_set_phases(kind, phases):
         f"{rate_text(CONFIG1_B * rate, CONFIG1_B * lo, CONFIG1_B * hi)} in {calls} calls; "
         f"K5 {k_c1}; last FFI {out['ffi']:.4f}")
     phases["configs 5 and 1"] = time.perf_counter() - t
+    return launches
+
+
+def cli_phases(kind, phases):
+    """Phase 24: the command-line path. Each command's ``main(argv)`` runs
+    in this process, as a user's ``python -m rfi_toolbox_tpu_torch.cli...``
+    would, in ``CLI_ROOT`` (removed at the end): generate -> normalize ->
+    train -> evaluate, the instance and coherent recipes with a resume,
+    ``--mesh_shape`` refused, and visualize's predictor. Returns K4's
+    launches in the commands' runs (the direct calls they are held to are
+    not counted)."""
+    import contextlib
+    import importlib.util
+    import io
+    import logging
+
+    from rfi_toolbox_tpu_torch.cli import evaluate_model as cli_eval
+    from rfi_toolbox_tpu_torch.cli import generate_dataset as cli_gen
+    from rfi_toolbox_tpu_torch.cli import normalize_data as cli_norm
+    from rfi_toolbox_tpu_torch.cli import train_model as cli_train
+    from rfi_toolbox_tpu_torch.data import RFIMaskDataset
+    from rfi_toolbox_tpu_torch.evaluation import evaluate_instance_model
+    from rfi_toolbox_tpu_torch.models import create_model, load_params
+    from rfi_toolbox_tpu_torch.ops import fused_extract_channels
+    from rfi_toolbox_tpu_torch.synth import RFISimulator
+    from rfi_toolbox_tpu_torch.train import CoherentTrainer, InstanceTrainer, Trainer
+    from rfi_toolbox_tpu_torch.visualization import visualize
+
+    dev = torch.device("cuda")
+    # the commands' INFO lines stay out of this output: their basicConfig is a
+    # no-op once the root logger has a handler
+    logging.basicConfig(level=logging.WARNING)
+    quiet = contextlib.redirect_stdout(io.StringIO())  # the evaluate command's printout
+    root = CLI_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    launches = {"K4": 0}
+
+    def k4_of(fn):
+        fused_extract_channels.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n = fused_extract_channels.launches
+        launches["K4"] += n
+        return out, n
+
+    def spy(cls, name, note):
+        """Wrap ``cls.name`` to call ``note(args, result)``; returns the undo."""
+        original = getattr(cls, name)
+
+        def wrapped(self, *args, **kwargs):
+            out = original(self, *args, **kwargs)
+            note(args, out)
+            return out
+
+        setattr(cls, name, wrapped)
+        return lambda: setattr(cls, name, original)
+
+    def restores(cls):
+        seen = []
+        return seen, spy(cls, "restore_checkpoint",
+                         lambda args, step: seen.append((Path(args[0]).name, step)))
+
+    try:
+        # -- (a) generate_rfi_dataset at the command's published widths ---------------------
+        t = time.perf_counter()
+        data = root / "data"
+        n_train, n_val = CLI_SAMPLES
+        writes = [0.0]
+        save = cli_gen.save_example_pair_npy
+
+        def timed_save(*args, **kwargs):
+            t0 = time.perf_counter()
+            save(*args, **kwargs)
+            writes[0] += time.perf_counter() - t0
+
+        cli_gen.save_example_pair_npy = timed_save
+        try:
+            cli_gen.main(["--samples_training", str(n_train), "--samples_validation", str(n_val),
+                          "--time_bins", str(CLI_SIDE), "--frequency_bins", str(CLI_SIDE),
+                          "--seed", str(CLI_SEED), "--batch_size", str(CLI_GEN_BATCH),
+                          "--output_dir", str(data)])
+        finally:
+            cli_gen.save_example_pair_npy = save
+        gen_s = time.perf_counter() - t
+        want = [f"{split}/{i:04d}/{f}" for split, n in (("train", n_train), ("val", n_val))
+                for i in range(n) for f in ("input.npy", "rfi_mask.npy")]
+        got = sorted(str(p.relative_to(data)) for p in data.rglob("*") if p.is_file())
+        require(got == sorted(want), f"generate: file tree {got[:4]}... is not {want[:4]}...")
+        n_bytes = 0
+        for rel in want:
+            a = np.load(data / rel, mmap_mode="r")
+            n_bytes += a.nbytes
+            shape = (8, CLI_SIDE, CLI_SIDE) if rel.endswith("input.npy") else (CLI_SIDE, CLI_SIDE)
+            dtype = np.float32 if rel.endswith("input.npy") else np.bool_
+            require(a.shape == shape and a.dtype == dtype, f"generate: {rel} {a.shape} {a.dtype}")
+        sim = RFISimulator(CLI_SIDE, CLI_SIDE, seed=CLI_SEED, device=dev)
+        tf, masks = sim.generate_rfi_device(
+            CLI_GEN_BATCH, torch.Generator(device=dev).manual_seed(CLI_SEED))
+        direct = torch.view_as_real(tf[0]).permute(0, 3, 1, 2).reshape(8, CLI_SIDE, CLI_SIDE)
+        x0 = np.load(data / "train/0000/input.npy")
+        m0 = np.load(data / "train/0000/rfi_mask.npy")
+        same = np.array_equal(x0, direct.cpu().numpy()) and np.array_equal(
+            m0, masks[0].cpu().numpy())
+        require(same, "generate: sample 0 differs from generate_rfi_device with the same "
+                f"generator (max diff {np.abs(x0 - direct.cpu().numpy()).max():.3g})")
+        require(np.isfinite(x0).all() and 0 < m0.mean() < 1, "generate: sample 0's planes or mask")
+        del tf, masks, direct, x0
+        n = n_train + n_val
+        log(f"phase 24: the command-line path on {kind}. (a) generate_rfi_dataset "
+            f"{n_train} + {n_val} samples of {CLI_SIDE}^2 (batches of {CLI_GEN_BATCH}): "
+            f"{gen_s:.3f} s, {gen_s / n:.4f} s a sample (the card's render and copy to the "
+            f"host {(gen_s - writes[0]) / n:.4f}, the stacks and np.save writes "
+            f"{writes[0] / n:.4f}); {n_bytes / 1e9:.3f} GB in {len(want)} files, the tree, "
+            f"shapes and dtypes as the JAX command's; sample 0 bit-equal to "
+            f"generate_rfi_device with the same generator (mask share {m0.mean():.4f})")
+
+        # -- (b) normalize_rfi_data --------------------------------------------------------
+        t = time.perf_counter()
+        val, val_norm = data / "val", root / "val_norm"
+        with quiet:
+            cli_norm.main(["--input_dir", str(val), "--output_dir", str(val_norm),
+                           "--normalization", "robust_scale"])
+        norm_s = time.perf_counter() - t
+        for i in range(n_val):
+            d = f"{i:04d}"
+            want_x = cli_norm.normalize_array(np.load(val / d / "input.npy"), "robust_scale")
+            require(np.array_equal(np.load(val_norm / d / "input.npy"), want_x),
+                    f"normalize: {d} differs from normalize_array")
+            require(np.array_equal(np.load(val_norm / d / "rfi_mask.npy"),
+                                   np.load(val / d / "rfi_mask.npy")), f"normalize: {d}'s mask")
+        log(f"  (b) normalize_rfi_data robust_scale on the {n_val} validation samples: "
+            f"{norm_s:.3f} s; each file equal to normalize_array on the host")
+
+        # -- (c) train_rfi_model: the UNet at unet_default.yaml's width -------------------
+        t = time.perf_counter()
+        ck = root / "ck"
+        semantic = ["--config", "configs/training/unet_default.yaml", "--batch_size",
+                    str(CLI_TRAIN_BATCH), "--train_dir", str(data / "train"), "--val_dir",
+                    str(val), "--checkpoint_dir", str(ck)]
+        built = []
+        create = cli_train.create_model
+
+        def recording_create(*args, **kwargs):
+            built.append(create(*args, **kwargs))
+            return built[-1]
+
+        cli_train.create_model = recording_create
+        try:
+            r1 = cli_train.main(semantic + ["--num_epochs", str(CLI_EPOCHS)])
+            r2 = cli_train.main(semantic + ["--num_epochs", str(CLI_EPOCHS + 1),
+                                            "--checkpoint_path", r1["final_checkpoint"]])
+        finally:
+            cli_train.create_model = create
+        train_s = time.perf_counter() - t
+        model = built[0]
+        require(next(model.parameters()).device.type == "cuda" and model.in_channels == 8
+                and model.init_features == 32 and model.dtype == torch.bfloat16,
+                "train: the model is not UNet32 bf16 on the card with 8 input channels")
+        require([h["epoch"] for h in r1["history"]] == list(range(1, CLI_EPOCHS + 1))
+                and [h["epoch"] for h in r2["history"]] == [CLI_EPOCHS + 1],
+                f"train: epochs {[h['epoch'] for h in r1['history']]} then "
+                f"{[h['epoch'] for h in r2['history']]}")
+        hist = r1["history"] + r2["history"]
+        require(all(np.isfinite([h["train_loss"], h["val_loss"]]).all() for h in hist),
+                "train: a loss is not finite")
+        log(f"  (c) train_rfi_model --config unet_default.yaml --batch_size {CLI_TRAIN_BATCH}: "
+            f"UNet32 bf16 on the card, in_channels 8, {n_train} images of {CLI_SIDE}^2 an "
+            f"epoch; s an epoch " + ", ".join(f"{h['seconds']:.3f}" for h in hist)
+            + " (images/s " + ", ".join(f"{n_train / h['seconds']:.2f}" for h in hist)
+            + "), the first with cuDNN's first calls; losses " + ", ".join(
+                f"{h['train_loss']:.4f}/{h['val_loss']:.4f}" for h in hist)
+            + f"; --checkpoint_path resumed at epoch {CLI_EPOCHS + 1}; {train_s:.3f} s in all")
+        del built, model
+
+        # -- (d) evaluate_rfi_model ---------------------------------------------------------
+        t = time.perf_counter()
+        final = r2["final_checkpoint"]
+        with quiet:
+            e_plain = cli_eval.main(["--model_path", final, "--dataset_dir", str(val),
+                                     "--batch_size", str(n_val)])
+            e_tta = cli_eval.main(["--model_path", final, "--dataset_dir", str(val),
+                                   "--batch_size", str(n_val), "--tta"])
+        for m in (e_plain, e_tta):
+            require(set(m) == {"iou", "precision", "recall", "f1", "dice"}
+                    and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in m.values()),
+                    f"evaluate: metrics {m}")
+        two = root / "val2"
+        for i in range(CLI_EVAL_SAMPLES):
+            shutil.copytree(val_norm / f"{i:04d}", two / f"{i:04d}")
+        snap_args = ["--model_path", CLI_EVAL_SNAPSHOT, "--dataset_dir", str(two),
+                     "--batch_size", str(CLI_EVAL_SAMPLES)]
+        with quiet:
+            card = cli_eval.main(snap_args)
+            t_cpu = time.perf_counter()
+            cpu = cli_eval.main(snap_args + ["--device", "cpu"])
+            t_cpu = time.perf_counter() - t_cpu
+        gap = max(abs(card[k] - cpu[k]) for k in card)
+        require(gap <= CLI_DEVICE_TOL, f"evaluate: card {card} vs CPU {cpu}")
+        log(f"  (d) evaluate_rfi_model on (c)'s checkpoint ({n_val} images): iou "
+            f"{e_plain['iou']:.4f}, TTA {e_tta['iou']:.4f}; {CLI_EVAL_SNAPSHOT} on "
+            f"{CLI_EVAL_SAMPLES} normalized samples: iou {card['iou']:.6f}, card vs CPU "
+            f"(TF32 off) max metric gap {gap:.2e} (tolerance {CLI_DEVICE_TOL:g}; the CPU "
+            f"{t_cpu:.2f} s); {time.perf_counter() - t:.3f} s")
+
+        # -- (e) --instance: train, resume, export, evaluate (K4 a step and a batch) -------
+        t = time.perf_counter()
+        inst_ck, x_npz = root / "inst_ck", root / "x.npz"
+        inst = ["--instance", "--checkpoint_every", str(CLI_CKPT), "--fused_steps",
+                str(CLI_CKPT), "--eval_images", str(CLI_EVAL_IMAGES), "--export", str(x_npz),
+                "--checkpoint_dir", str(inst_ck)]
+        torch.backends.cudnn.deterministic = True
+        try:
+            ri, k_first = k4_of(lambda: cli_train.main(inst + ["--num_steps", str(CLI_STEPS)]))
+            t_first = time.perf_counter() - t
+            seen, unspy = restores(InstanceTrainer)
+            try:
+                t0 = time.perf_counter()
+                ri2, k_resume = k4_of(lambda: cli_train.main(
+                    inst + ["--num_steps", str(CLI_STEPS_RESUMED), "--auto_resume"]))
+                t_resume = time.perf_counter() - t0
+            finally:
+                unspy()
+            files = sorted(p.name for p in inst_ck.iterdir())
+            require(files == [f"step_{s}.pt" for s in (CLI_CKPT, CLI_STEPS, CLI_STEPS_RESUMED)],
+                    f"instance: checkpoints {files}")
+            require(seen == [(f"step_{CLI_STEPS}.pt", CLI_STEPS)] and ri["steps"] == CLI_STEPS
+                    and ri2["steps"] == CLI_STEPS_RESUMED,
+                    f"instance: resumed from {seen}, steps {ri['steps']}, {ri2['steps']}")
+            n_resumed = CLI_STEPS_RESUMED - CLI_STEPS
+            require(k_first == CLI_STEPS + 1 and k_resume == n_resumed + 1,
+                    f"instance: K4 launched {k_first} and {k_resume} times, not once a step "
+                    "and once an evaluation batch")
+            require(all(np.isfinite(h["loss"]) for h in ri["history"] + ri2["history"]),
+                    "instance: a loss is not finite")
+            rows = []
+            all_six = cli_train._load_event_config(ALL_SIX_YAML)
+            for path, argv, batch, score, mix in (
+                    (x_npz, ["--batch_size", str(CLI_EVAL_IMAGES)], CLI_EVAL_IMAGES, 0.3, {}),
+                    (SOLOLITE, ["--score_thresh", "0.25", "--event_config", ALL_SIX_YAML], 8,
+                     0.25, {"rfi_config": all_six})):
+                with quiet:
+                    got, k_eval = k4_of(lambda: cli_eval.main(
+                        ["--model_path", str(path), "--instance", "--num_images",
+                         str(CLI_EVAL_IMAGES)] + argv))
+                # the direct call the command is held to (its launches are not counted)
+                want_q = evaluate_instance_model(
+                    InstanceTrainer.load(path, batch_size=batch, **mix),
+                    num_images=CLI_EVAL_IMAGES, seed=10_000, iou_thresh=0.5, score_thresh=score)
+                require(got == want_q, f"instance: evaluate_rfi_model on {path} gave {got}, "
+                        f"the direct call {want_q}")
+                require(k_eval == -(-CLI_EVAL_IMAGES // batch),
+                        f"instance: K4 launched {k_eval} times in evaluating {path}")
+                rows.append(f"{Path(path).name} recall {got['recall']:.4f} precision "
+                            f"{got['precision']:.4f} (K4 {k_eval})")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        steps_s = [h["steps_per_sec"] for h in ri["history"] + ri2["history"]]
+        log(f"  (e) --instance (f=48, patch 128, batch 64): {CLI_STEPS} steps {t_first:.3f} s "
+            f"with its evaluation and export, then --auto_resume from step_{CLI_STEPS}.pt to "
+            f"{CLI_STEPS_RESUMED} in {t_resume:.3f} s; steps/s by fit call "
+            + ", ".join(f"{s:.2f}" for s in steps_s)
+            + f"; K4 {k_first} + {k_resume} (once a step and an evaluation batch); "
+            "evaluate_rfi_model --instance equal to the direct calls: " + "; ".join(rows))
+
+        # -- (f) --coherent: train, resume, export, evaluate --------------------------------
+        t = time.perf_counter()
+        coh_ck, y_npz = root / "coh_ck", root / "y.npz"
+        coh = ["--coherent", "--checkpoint_every", str(CLI_CKPT), "--export", str(y_npz),
+               "--checkpoint_dir", str(coh_ck)]
+        rates = []  # each fit call's steps/s (its one log record, at its end)
+        unfit = spy(CoherentTrainer, "fit",
+                    lambda args, out: rates.append(out["history"][-1]["steps_per_sec"]))
+        try:
+            rc, k_coh = k4_of(lambda: cli_train.main(coh + ["--num_steps", str(CLI_STEPS)]))
+            t_first = time.perf_counter() - t
+            seen, unspy = restores(CoherentTrainer)
+            try:
+                rc2, k_coh2 = k4_of(lambda: cli_train.main(
+                    coh + ["--num_steps", str(CLI_STEPS_RESUMED), "--auto_resume"]))
+            finally:
+                unspy()
+        finally:
+            unfit()
+        files = sorted(p.name for p in coh_ck.iterdir())
+        require(files == [f"step_{s}.pt" for s in (CLI_CKPT, CLI_STEPS, CLI_STEPS_RESUMED)],
+                f"coherent: checkpoints {files}")
+        require(seen == [(f"step_{CLI_STEPS}.pt", CLI_STEPS)] and rc["steps"] == CLI_STEPS
+                and rc2["steps"] == CLI_STEPS_RESUMED and k_coh == k_coh2 == 0,
+                f"coherent: resumed from {seen}, steps {rc['steps']}, {rc2['steps']}, "
+                f"K4 {k_coh} {k_coh2}")
+        meta = load_params(y_npz)[2]
+        require(meta["steps"] == CLI_STEPS_RESUMED and meta["in_channels"] == 8,
+                f"coherent: the exported metadata {meta}")
+        with quiet:
+            ey = cli_eval.main(["--model_path", str(y_npz), "--coherent"])
+            gate_t = load_params(CLI_COHERENT_SNAPSHOT)[2]["best_threshold"]
+            eg = cli_eval.main(["--model_path", CLI_COHERENT_SNAPSHOT, "--coherent",
+                                "--num_images", str(GATE_BATCHES * GATE_BATCH),
+                                "--batch_size", str(GATE_BATCH), "--threshold", str(gate_t)])
+        floor = COHERENT_GATES[Path(CLI_COHERENT_SNAPSHOT).stem][0]
+        require(eg["best_iou"] >= floor, f"coherent: {CLI_COHERENT_SNAPSHOT} held-out IoU "
+                f"{eg['best_iou']:.4f} under phase 17(a)'s floor {floor}")
+        log(f"  (f) --coherent (UNet24, 256^2, batch 16, bf16): {CLI_STEPS} steps {t_first:.3f} "
+            f"s with its sweep and export, resumed from step_{CLI_STEPS}.pt to "
+            f"{CLI_STEPS_RESUMED}; steps/s by fit call " + ", ".join(f"{r:.2f}" for r in rates)
+            + f"; held-out best IoU {rc['eval']['best_iou']:.4f} then "
+            f"{rc2['eval']['best_iou']:.4f}; evaluate_rfi_model --coherent on the export "
+            f"{ey['best_iou']:.4f} @ {ey['best_threshold']} (32 samples); on "
+            f"{Path(CLI_COHERENT_SNAPSHOT).name} at its threshold {gate_t} over phase 17(a)'s "
+            f"{GATE_BATCHES} x {GATE_BATCH} samples: mean IoU a sample {eg['best_iou']:.4f} "
+            f"(phase 17(a)'s floor {floor}, there a batch's pooled IoU); "
+            f"{time.perf_counter() - t:.3f} s")
+
+        # -- (g) --mesh_shape beyond one device ---------------------------------------------
+        refused = []
+        for argv in (semantic + ["--mesh_shape", "2,1"], coh + ["--mesh_shape", "2,1"]):
+            try:
+                cli_train.main(argv)
+            except SystemExit as e:
+                refused.append(str(e))
+        require(len(refused) == 2 and all("one device" in r for r in refused),
+                f"mesh: --mesh_shape 2,1 not refused: {refused}")
+        log(f"  (g) --mesh_shape 2,1 refused (semantic and --coherent): {refused[0]}")
+
+        # -- (h) visualize_rfi_data's predictor ---------------------------------------------
+        t = time.perf_counter()
+        x, _ = RFIMaskDataset(str(val), device=dev)[0]
+        x = x.cpu().numpy()
+        got = visualize._predictor(final, 8, "unet", 32, (CLI_SIDE, CLI_SIDE, 8))(x)
+        trainer = Trainer(create_model("unet", in_channels=8, init_features=32))
+        trainer.restore(final)
+        want_p = trainer.predict(np.transpose(x, (1, 2, 0))[None])[0].cpu().numpy()
+        require(np.array_equal(got, want_p.astype(float)),
+                "visualize: _predictor differs from Trainer.predict")
+        drawing = [m for m in ("matplotlib", "bokeh") if importlib.util.find_spec(m)]
+        log(f"  (h) visualize_rfi_data's _predictor on the card equals Trainer.predict on "
+            f"validation sample 0 ({got.mean():.4f} flagged); {time.perf_counter() - t:.3f} s; "
+            f"drawing not checked here ({', '.join(drawing) or 'neither matplotlib nor bokeh'}"
+            f" installed; tests/test_torch_visualize.py draws on the CPU)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return launches
 
 
@@ -2710,6 +3093,11 @@ def main():
     # -- 22-23: the measurement-set path, then BASELINE configs 5 and 1 -----------------------
     ms_launches = measurement_set_phases(kind, phases)
 
+    # -- 24: the command-line path ----------------------------------------------------------
+    t = time.perf_counter()
+    cli_launches = cli_phases(kind, phases)
+    phases["command line"] = time.perf_counter() - t
+
     log("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total wall time {time.perf_counter() - T_START:.1f} s")
     static_json = []
@@ -2754,7 +3142,8 @@ def main():
          "source": "rfi_toolbox_tpu_torch/ops/csrc/channel_planes.cu",
          "replaces": "rfi_toolbox_tpu/ops/fused_channels.py:455",
          "launches": k4_launches + universal_launches + inst_eval_launches
-         + inst_train_launches + ms_launches["K4"], "max_abs_err": max(k4_err.values()),
+         + inst_train_launches + ms_launches["K4"] + cli_launches["K4"],
+         "max_abs_err": max(k4_err.values()),
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_bound_by, "library_ms": None},
         {"name": "mad_flag_patches", "route": "cuda",

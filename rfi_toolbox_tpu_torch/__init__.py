@@ -12,9 +12,20 @@ they raise instead of falling back.
 
 Subpackages (the slices ported so far: flagging, the training main
 path, train -> export -> serve, training from files and raw patches, the
-coherent 8-channel path, the SOLOLite instance path, and the
-measurement-set path):
-- utils: device resolution, the float32 precision switch, progress bars
+coherent 8-channel path, the SOLOLite instance path, the measurement-set
+path, and the command-line entry points with their YAML config):
+- utils: device resolution, the float32 precision switch, progress bars,
+  the errors, and profiling (``trace``, ``annotate``, ``StepTimer``)
+- config: the YAML config loader (``ConfigLoader``, ``TrainingConfig``,
+  ``DataConfig``) and its validators
+- cli: the commands ``generate_dataset``, ``normalize_data``,
+  ``train_model`` and ``evaluate_model``, each run as ``python -m
+  rfi_toolbox_tpu_torch.cli.<name>`` (on the card unless ``--device
+  cpu``)
+- visualization: ``visualize`` (Bokeh viewer or a matplotlib PNG,
+  ``python -m rfi_toolbox_tpu_torch.visualization.visualize``)
+- core, preprocessing, datasets, data_generation, scripts: the
+  reference's import paths, as aliases of the modules above and below
 - preprocess: the plain pipeline (the plain versions of the kernels),
   the static virtual-augmentation prep, ``Preprocessor`` and the
   raw-patch ``DevicePreprocessor``
@@ -32,7 +43,8 @@ measurement-set path):
 - train: losses, the optax-equivalent optimiser, the train steps,
   ``Trainer`` (in memory or streamed from batch files),
   ``RawPatchTrainer``, ``CoherentTrainer`` and ``InstanceTrainer``
-- serving: fixed-batch segmentation predictor
+- serving: fixed-batch segmentation predictor (and its operation count,
+  ``cost_analysis``)
 - io: ``flag_waterfalls``, ``flag_waterfalls_coherent``, the
   Measurement Set reader ``MSLoader`` (casatools, optional, or the
   in-memory ``FakeMS``), ``inject_synthetic_data`` and

@@ -12,7 +12,10 @@ same shape.
 >>> masks = pred(images)        # (N, 128, 128, 3) -> (N, 128, 128) bool
 """
 
+import copy
+
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from .models.convert import unet_from_snapshot
 from .models.folding import fold_batchnorm
@@ -83,6 +86,24 @@ class CompiledPredictor:
         if "best_threshold" in meta:
             kwargs.setdefault("threshold", float(meta["best_threshold"]))
         return cls(model, device=device, **kwargs)
+
+    @property
+    def cost_analysis(self):
+        """The operation count of one call's forward at the fixed batch
+        and input shape (four forwards with ``tta``): ``{"flops": n}``,
+        counted by ``torch.utils.flop_counter`` over a forward of a copy
+        of the model on the meta device (no arithmetic runs). It counts 2
+        a multiply-add of every convolution tap, those on the zero padding
+        of each 3x3 conv included, and no elementwise operation. The JAX
+        predictor's ``cost_analysis`` (XLA's) counts only the taps inside
+        the image and adds the elementwise ones (bias, norm, ReLU,
+        sigmoid); ``tests/test_torch_cli.py`` holds the two apart by
+        exactly that."""
+        model = copy.deepcopy(self.model).to("meta")
+        x = torch.empty((self.batch_size, *self.input_shape), device="meta")
+        with FlopCounterMode(display=False) as counter, torch.no_grad():
+            model(x.permute(0, 3, 1, 2))
+        return {"flops": float(counter.get_total_flops() * (4 if self.tta else 1))}
 
     def logits(self, images):
         """(B, H, W, C) float32 tensor on the predictor's device ->

@@ -56,6 +56,17 @@ def test_import_leaves_jax_out():
         "import rfi_toolbox_tpu_torch.io.ms_loader, rfi_toolbox_tpu_torch.io.ms_injection, "
         "rfi_toolbox_tpu_torch.io.fake_ms, rfi_toolbox_tpu_torch.evaluation.statistics, "
         "rfi_toolbox_tpu_torch.data.rfi_mask_dataset\n"
+        "import rfi_toolbox_tpu_torch.cli, rfi_toolbox_tpu_torch.cli.generate_dataset, "
+        "rfi_toolbox_tpu_torch.cli.normalize_data, rfi_toolbox_tpu_torch.cli.train_model, "
+        "rfi_toolbox_tpu_torch.cli.evaluate_model, rfi_toolbox_tpu_torch.config, "
+        "rfi_toolbox_tpu_torch.config.loader, rfi_toolbox_tpu_torch.config.validators, "
+        "rfi_toolbox_tpu_torch.visualization, rfi_toolbox_tpu_torch.visualization.visualize, "
+        "rfi_toolbox_tpu_torch.core, rfi_toolbox_tpu_torch.preprocessing, "
+        "rfi_toolbox_tpu_torch.datasets, rfi_toolbox_tpu_torch.data_generation, "
+        "rfi_toolbox_tpu_torch.scripts, rfi_toolbox_tpu_torch.utils.errors, "
+        "rfi_toolbox_tpu_torch.utils.profiling\n"
+        "from rfi_toolbox_tpu_torch.config import ConfigLoader, TrainingConfig, validate_all\n"
+        "from rfi_toolbox_tpu_torch.utils import StepTimer, trace, annotate, ConfigValidationError\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
