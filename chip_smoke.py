@@ -226,7 +226,27 @@ exit) if any phase fails:
     on the export and on unet24gn_coherent8ch.npz over phase 17(a)'s 64
     samples at its threshold, held to phase 17(a)'s floor; (g)
     --mesh_shape 2,1 refused; (h) visualize_rfi_data's predictor against
-    Trainer.predict (the drawing is left to the CPU tests).
+    Trainer.predict (the drawing is left to the CPU tests);
+25. the mesh paths (``rfi_toolbox_tpu_torch.parallel``) at world size 1
+    on the card, through a real NCCL process group
+    (``initialize_distributed`` with a coordinator on localhost; the
+    driver's run has one card, and NCCL refuses two ranks on one device,
+    so the multi-rank contract is held by the gloo tests on the CPU):
+    (a) ``Trainer(mesh_shape=(1, 1))`` against ``Trainer()`` at
+    configs/training/unet_dp_tp.yaml's width (unet_bigger, init_features
+    32, 8 input channels, batch 64 at 128^2), 2 epochs of 3 steps in
+    bf16 and in float32 (deterministic cuDNN): losses within 1e-5,
+    parameters within lr / 2 and 99% within lr / 100 (the gaps printed),
+    steps/s of the second epoch with and without the mesh; (b)
+    flag_waterfalls(mesh=) mad (K5) and model (K4) on the 8 waterfalls
+    and on one alone, flags bit-equal to the meshless ones (and K5's to
+    its plain version); (c) preprocess_sharded (K4) within 2e-5 of the
+    plain extraction, sharded_global_stats' median of |z| bit-equal to the
+    mean of the two middle values of a torch.sort; (d) CoherentTrainer(mesh=)
+    at the flagship recipe and InstanceTrainer(mesh_shape=(1,)) at the
+    shipped one, 3 steps each, equal to their meshless runs; (e)
+    train_rfi_model --config unet_dp_tp.yaml --mesh_shape 1,1 cut to one
+    epoch of 3 steps, and --mesh_shape 2,1 refused.
 
 Waterfalls/s is timed on the host clock over 3 windows of at least
 ``WINDOW_S`` seconds each (calls queued back to back, one synchronize at
@@ -524,6 +544,15 @@ CONFIG1_B = 4
 CONFIG1_EVENTS = {"narrowband_persistent": {"count": 20}, "broadband_persistent": {"count": 5},
                   "narrowband_bursty": {"count": 20}, "broadband_bursty": {"count": 5},
                   "frequency_sweep": {"count": 1}}
+# Phase 25: the mesh paths at world size 1 (see the docstring). unet_dp_tp.yaml's
+# model at its width, batch 64 at 128^2 (its dataset's patch size), cut in depth
+# to 2 epochs of PAR_STEPS steps
+PAR_SEED = 20261018
+PAR_STEPS, PAR_LR = 3, 1e-4
+PAR_MODEL = {"model_type": "unet_bigger", "in_channels": 8, "init_features": 32}
+PAR_BATCH, PAR_SIDE = 64, 128
+PAR_RECIPE_STEPS = 3  # (d): the coherent and instance recipes' steps
+PAR_TOL = 2e-5  # (c): the extraction's bound
 # Phase 24: the command-line path. generate_rfi_dataset at its published
 # widths (1024 x 1024, the command's defaults), cut in depth from 1000 + 200
 # samples to 16 + 4 (0.66 GB on disk); train_rfi_model at
@@ -1412,7 +1441,8 @@ def cli_phases(kind, phases):
                 cli_train.main(argv)
             except SystemExit as e:
                 refused.append(str(e))
-        require(len(refused) == 2 and all("one device" in r for r in refused),
+        require(len(refused) == 2 and all("asks for 2 devices but this run has 1" in r
+                                          for r in refused),
                 f"mesh: --mesh_shape 2,1 not refused: {refused}")
         log(f"  (g) --mesh_shape 2,1 refused (semantic and --coherent): {refused[0]}")
 
@@ -1433,6 +1463,236 @@ def cli_phases(kind, phases):
             f" installed; tests/test_torch_visualize.py draws on the CPU)")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+def parallel_phases(kind, wf):
+    """Phase 25: the mesh paths at world size 1 on the card, through a real
+    NCCL process group (see the module docstring). ``wf``: phase 5's
+    waterfalls on the card. Returns K4's and K5's launches on the mesh
+    paths (the meshless runs they are held to are not counted)."""
+    import logging
+    import socket
+
+    import torch.distributed as dist
+
+    from rfi_toolbox_tpu_torch.cli import train_model as cli_train
+    from rfi_toolbox_tpu_torch.data import ArrayDataset, BatchWriter
+    from rfi_toolbox_tpu_torch.io import flag_waterfalls
+    from rfi_toolbox_tpu_torch.models import SOLOLite, create_model
+    from rfi_toolbox_tpu_torch.ops import (
+        fused_extract_channels,
+        fused_extract_channels_plain,
+        mad_flag_patches,
+    )
+    from rfi_toolbox_tpu_torch.parallel import initialize_distributed, make_mesh, process_info
+    from rfi_toolbox_tpu_torch.parallel.spatial import preprocess_sharded, sharded_global_stats
+    from rfi_toolbox_tpu_torch.preprocess import pipeline as P
+    from rfi_toolbox_tpu_torch.serving import CompiledPredictor
+    from rfi_toolbox_tpu_torch.train import CoherentTrainer, InstanceTrainer, Trainer
+
+    logging.basicConfig(level=logging.WARNING)
+    launches = {"K4": 0, "K5": 0}
+
+    def reset_counts():
+        fused_extract_channels.launches = 0
+        mad_flag_patches.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        k4, k5 = fused_extract_channels.launches, mad_flag_patches.launches
+        launches["K4"] += k4
+        launches["K5"] += k5
+        return k4, k5
+
+    def gaps(got, want, lr):
+        """max |param diff| / lr and the share of coordinates within lr / 100"""
+        diff = torch.cat([(a.double() - b.double()).abs().flatten() for a, b in zip(got, want)])
+        return float(diff.max()) / lr, float((diff <= lr / 100).double().mean())
+
+    def params_of(trainer):
+        return [p.detach().clone() for p in trainer.state.params]
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t = time.perf_counter()
+    multi = initialize_distributed(coordinator_address=f"localhost:{port}", num_processes=1,
+                                   process_id=0)
+    require(not multi and dist.is_initialized() and dist.get_backend() == "nccl",
+            "mesh: the NCCL process group of one rank did not start")
+    log(f"phase 25: the mesh paths at world size 1 on {kind}: process group "
+        f"{dist.get_backend()}, (rank, world, local cards) {process_info()}, "
+        f"{time.perf_counter() - t:.2f} s to start")
+    root = Path("build/chip_smoke_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        # -- (a) Trainer(mesh_shape=(1, 1)) against Trainer() --------------------------------
+        t = time.perf_counter()
+        g = torch.Generator().manual_seed(PAR_SEED)
+        n = PAR_STEPS * PAR_BATCH
+        images = torch.randn((n, PAR_SIDE, PAR_SIDE, PAR_MODEL["in_channels"]), generator=g)
+        labels = (images[..., 0] > 1.2).to(torch.uint8)
+        ds = ArrayDataset(images.numpy(), labels.numpy())
+        torch.backends.cudnn.deterministic = True
+        rates = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            runs = {}
+            for mesh_shape in (None, (1, 1)):
+                trainer = Trainer(create_model(PAR_MODEL["model_type"],
+                                               in_channels=PAR_MODEL["in_channels"],
+                                               init_features=PAR_MODEL["init_features"],
+                                               dtype=dtype),
+                                  learning_rate=PAR_LR, mesh_shape=mesh_shape, seed=PAR_SEED)
+                history = trainer.fit(ds, num_epochs=2, batch_size=PAR_BATCH)["history"]
+                runs[mesh_shape] = (history, params_of(trainer))
+                rates[(dtype, mesh_shape)] = PAR_STEPS / history[1]["seconds"]
+                require(trainer.mesh is None or trainer.mesh.shape == {"data": 1, "model": 1},
+                        "mesh: Trainer(mesh_shape=(1, 1)) built another mesh")
+                del trainer
+            (h_plain, p_plain), (h_mesh, p_mesh) = runs[None], runs[(1, 1)]
+            loss_gap = max(abs(a["train_loss"] - b["train_loss"]) for a, b in zip(h_mesh, h_plain))
+            worst, share = gaps(p_mesh, p_plain, PAR_LR)
+            name = str(dtype).removeprefix("torch.")
+            log(f"  (a) Trainer(mesh_shape=(1, 1)) against Trainer(), {PAR_MODEL['model_type']} "
+                f"f={PAR_MODEL['init_features']}, {PAR_MODEL['in_channels']} channels, batch "
+                f"{PAR_BATCH} at {PAR_SIDE}^2, {name}, 2 epochs of {PAR_STEPS} steps "
+                f"(deterministic cuDNN): losses {[round(h['train_loss'], 6) for h in h_mesh]} "
+                f"against {[round(h['train_loss'], 6) for h in h_plain]}, gap {loss_gap:.3g} "
+                f"(tol 1e-5); parameters max |diff| {worst:.3g} * lr (tol 0.5), "
+                f"{share:.6f} within lr / 100 (tol 0.99); steps/s of the second epoch "
+                f"{rates[(dtype, (1, 1))]:.2f} with the mesh, {rates[(dtype, None)]:.2f} without")
+            require(loss_gap <= 1e-5 and worst <= 0.5 and share >= 0.99,
+                    f"mesh: Trainer(mesh_shape=(1, 1)) departs from Trainer() in {name}")
+            del runs, p_plain, p_mesh
+        torch.backends.cudnn.deterministic = False
+        log(f"  (a) {time.perf_counter() - t:.2f} s")
+
+        # -- (b) flag_waterfalls(mesh=): K5 and K4 ----------------------------------------
+        t = time.perf_counter()
+        mesh = make_mesh((1,), axis_names=("data",))
+        pred = CompiledPredictor.from_snapshot(SNAPSHOTS[0], batch_size=BATCH)
+        for name, x in (("8 waterfalls", wf), ("one waterfall", wf[:1])):
+            plain_mad = flag_waterfalls(x, method="mad", sigma=SIGMA)
+            k5_plain = flag_waterfalls(x, method="mad", sigma=SIGMA, use_pallas=False)
+            plain_model = flag_waterfalls(x, method="model", predictor=pred)
+            reset_counts()
+            mesh_mad = flag_waterfalls(x, method="mad", sigma=SIGMA, mesh=mesh)
+            mesh_model = flag_waterfalls(x, method="model", predictor=pred, mesh=mesh)
+            k4, k5 = read_counts()
+            mad_ms = cuda_ms(lambda: flag_waterfalls(x, method="mad", sigma=SIGMA, mesh=mesh),
+                             calls=10, windows=3)
+            mad_plain_ms = cuda_ms(lambda: flag_waterfalls(x, method="mad", sigma=SIGMA),
+                                   calls=10, windows=3)
+            log(f"  (b) flag_waterfalls(mesh=) on {name}: mad flags equal to the meshless "
+                f"call's {torch.equal(mesh_mad, plain_mad)} and to K5's plain version's "
+                f"{torch.equal(mesh_mad, k5_plain)} ({float(mesh_mad.float().mean()):.5f} "
+                f"flagged); model flags equal {torch.equal(mesh_model, plain_model)}; K4 {k4}, "
+                f"K5 {k5} launches; a mad call {mad_ms:.4f} ms with the mesh (its flags "
+                f"gathered over NCCL), {mad_plain_ms:.4f} ms without")
+            require(torch.equal(mesh_mad, plain_mad) and torch.equal(mesh_mad, k5_plain)
+                    and torch.equal(mesh_model, plain_model),
+                    f"mesh: flag_waterfalls(mesh=) differs from the meshless flags ({name})")
+            require(k4 == 1 and k5 == 1, f"mesh: flag_waterfalls(mesh=) on {name} did not "
+                    "launch K4 and K5 once each")
+        del pred
+        log(f"  (b) {time.perf_counter() - t:.2f} s (at one rank M = 1 is not below the data "
+            "axis, so the channel split is not taken: the gloo tests hold it at 2 and 4)")
+
+        # -- (c) preprocess_sharded (K4) and sharded_global_stats --------------------------
+        t = time.perf_counter()
+        reset_counts()
+        img = preprocess_sharded(wf, mesh, patch_size=PATCH)
+        k4, _ = read_counts()
+        want = fused_extract_channels_plain(P.patchify_batch(wf, PATCH).contiguous())
+        err = extract_err((img,), (want,), "preprocess_sharded")
+        mag = wf.abs()
+        t0 = time.perf_counter()
+        stats = sharded_global_stats(mag, mesh)
+        stats_s = time.perf_counter() - t0
+        srt = torch.sort(mag.flatten()).values
+        m = srt.numel()
+        median = float(0.5 * (srt[(m - 1) // 2] + srt[m // 2]))
+        mean64, std64 = float(mag.double().mean()), float(mag.double().std(correction=0))
+        rel_mean = abs(stats["mean"] - mean64) / mean64
+        rel_std = abs(stats["std"] - std64) / std64
+        log(f"  (c) preprocess_sharded {tuple(img.shape)}: max |diff| to the plain extraction "
+            f"{err:.2e} (tol {PAR_TOL:g}), K4 {k4} launch; sharded_global_stats of |z| over "
+            f"{m} values in {stats_s:.3f} s: median {stats['median']!r}, a torch.sort's "
+            f"middle pair {median!r}; mean and std off float64 by {rel_mean:.2e} and "
+            f"{rel_std:.2e} (tol 1e-5, 1e-4); {time.perf_counter() - t:.2f} s")
+        require(err <= PAR_TOL and k4 == 1, "mesh: preprocess_sharded departs from the plain "
+                "extraction or did not launch K4 once")
+        require(stats["median"] == median and rel_mean <= 1e-5 and rel_std <= 1e-4,
+                "mesh: sharded_global_stats departs from the sorted values")
+        del img, want, mag, srt
+
+        # -- (d) CoherentTrainer(mesh=) and InstanceTrainer(mesh_shape=) ------------------
+        t = time.perf_counter()
+        torch.backends.cudnn.deterministic = True
+        for name, make, lr in (
+                ("CoherentTrainer", lambda m: CoherentTrainer(
+                    **COHERENT_RECIPE, learning_rate=PAR_LR, seed=PAR_SEED, mesh=m), PAR_LR),
+                ("InstanceTrainer", lambda m: InstanceTrainer(
+                    model=SOLOLite(**INST_MODEL), patch_size=PATCH, batch_size=INST_BATCH,
+                    learning_rate=INST_CHECK_LR, seed=PAR_SEED,
+                    mesh_shape=None if m is None else (1,)), INST_CHECK_LR)):
+            runs = {}
+            for on_mesh in (False, True):
+                trainer = make(mesh if on_mesh else None)
+                reset_counts()
+                history = trainer.fit(PAR_RECIPE_STEPS, log_every=1, fused_steps=1)["history"]
+                k4, _ = read_counts() if on_mesh else (fused_extract_channels.launches, 0)
+                runs[on_mesh] = ([h["loss"] for h in history], params_of(trainer), k4)
+                del trainer
+            (l_plain, p_plain, _), (l_mesh, p_mesh, k4) = runs[False], runs[True]
+            loss_gap = max(abs(a - b) for a, b in zip(l_mesh, l_plain))
+            worst, share = gaps(p_mesh, p_plain, lr)
+            log(f"  (d) {name} on a data mesh of one against none, {PAR_RECIPE_STEPS} steps: "
+                f"losses {[round(v, 6) for v in l_mesh]}, gap {loss_gap:.3g} (tol 1e-5); "
+                f"parameters max |diff| {worst:.3g} * lr (tol 0.5), {share:.6f} within "
+                f"lr / 100; K4 launches {k4}")
+            require(loss_gap <= 1e-5 and worst <= 0.5 and share >= 0.99,
+                    f"mesh: {name} on the mesh departs from the meshless run")
+            require(name != "InstanceTrainer" or k4 == PAR_RECIPE_STEPS,
+                    "mesh: InstanceTrainer did not launch K4 once a step")
+            del runs, p_plain, p_mesh
+        torch.backends.cudnn.deterministic = False
+        log(f"  (d) {time.perf_counter() - t:.2f} s")
+
+        # -- (e) train_rfi_model --config unet_dp_tp.yaml --mesh_shape 1,1 -------------------
+        t = time.perf_counter()
+        writer = BatchWriter(root / "batches", samples_per_batch=PAR_BATCH)
+        writer.add_batch(ds)
+        writer.finalize()
+        argv = ["--config", "configs/training/unet_dp_tp.yaml", "--train_batches_dir",
+                str(root / "batches"), "--num_epochs", "1", "--checkpoint_dir",
+                str(root / "ck")]
+        res = cli_train.main(argv + ["--mesh_shape", "1,1"])
+        final = torch.load(res["final_checkpoint"], weights_only=True)
+        restored = Trainer(create_model(PAR_MODEL["model_type"],
+                                        in_channels=PAR_MODEL["in_channels"],
+                                        init_features=PAR_MODEL["init_features"]))
+        restored.restore(res["final_checkpoint"])
+        try:
+            cli_train.main(argv + ["--mesh_shape", "2,1"])
+            refused = ""
+        except SystemExit as e:
+            refused = str(e)
+        loss = res["history"][0]["train_loss"]
+        log(f"  (e) train_rfi_model --config unet_dp_tp.yaml --mesh_shape 1,1, one epoch of "
+            f"{final['step']} steps of {PAR_BATCH}: loss {loss:.6f}, final checkpoint restores "
+            f"in a meshless Trainer; --mesh_shape 2,1 refused: {refused!r}; "
+            f"{time.perf_counter() - t:.2f} s")
+        require(np.isfinite(loss) and final["step"] == PAR_STEPS,
+                "mesh: train_rfi_model --mesh_shape 1,1 did not train")
+        require("asks for 2 devices but this run has 1" in refused,
+                "mesh: --mesh_shape 2,1 was not refused at world size 1")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return launches
 
 
@@ -3098,6 +3358,11 @@ def main():
     cli_launches = cli_phases(kind, phases)
     phases["command line"] = time.perf_counter() - t
 
+    # -- 25: the mesh paths at world size 1 ------------------------------------------------
+    t = time.perf_counter()
+    mesh_launches = parallel_phases(kind, wf)
+    phases["mesh"] = time.perf_counter() - t
+
     log("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phases.items())
         + f"; total wall time {time.perf_counter() - T_START:.1f} s")
     static_json = []
@@ -3142,14 +3407,15 @@ def main():
          "source": "rfi_toolbox_tpu_torch/ops/csrc/channel_planes.cu",
          "replaces": "rfi_toolbox_tpu/ops/fused_channels.py:455",
          "launches": k4_launches + universal_launches + inst_eval_launches
-         + inst_train_launches + ms_launches["K4"] + cli_launches["K4"],
+         + inst_train_launches + ms_launches["K4"] + cli_launches["K4"]
+         + mesh_launches["K4"],
          "max_abs_err": max(k4_err.values()),
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_bound_by, "library_ms": None},
         {"name": "mad_flag_patches", "route": "cuda",
          "source": "rfi_toolbox_tpu_torch/ops/csrc/mad_flags.cu",
          "replaces": "rfi_toolbox_tpu/ops/mad_flags.py:132",
-         "launches": k5_launches + ms_launches["K5"],
+         "launches": k5_launches + ms_launches["K5"] + mesh_launches["K5"],
          "max_abs_err": float(max(k5_diff.values())),
          "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound * 1e3,
          "bound_by": "bytes", "library_ms": None},

@@ -13,7 +13,8 @@ they raise instead of falling back.
 Subpackages (the slices ported so far: flagging, the training main
 path, train -> export -> serve, training from files and raw patches, the
 coherent 8-channel path, the SOLOLite instance path, the measurement-set
-path, and the command-line entry points with their YAML config):
+path, the command-line entry points with their YAML config, and runs over
+several devices):
 - utils: device resolution, the float32 precision switch, progress bars,
   the errors, and profiling (``trace``, ``annotate``, ``StepTimer``)
 - config: the YAML config loader (``ConfigLoader``, ``TrainingConfig``,
@@ -51,6 +52,11 @@ path, and the command-line entry points with their YAML config):
   ``flag_measurement_set`` (load -> flag on the card -> FLAG write-back)
 - evaluation: segmentation metrics; instance matching and the held-out
   evaluation of ``InstanceTrainer``; MAD, FFI and calcquality statistics
+- parallel: runs over several devices, one process each, joined by
+  ``torch.distributed`` (``initialize_distributed``, ``make_mesh``,
+  ``shard_batch``, tensor parallelism, ``preprocess_sharded``,
+  ``sharded_global_stats``); the trainers, ``flag_waterfalls``,
+  ``flag_measurement_set`` and ``train_model --mesh_shape`` take a mesh
 """
 
 __version__ = "0.1.0"

@@ -18,14 +18,18 @@ and results:
 Where the port differs: the model is built with the data's channel
 count; checkpoints are the port's ``.pt`` files (``Trainer``'s, and the
 coherent and instance trainers' ``step_{n}.pt``, which ``--auto_resume``
-finds by their step); every device is explicit (``--device``, default
-the card, raising without one); and ``--mesh_shape`` must describe one
-device (its product 1) until ``parallel/`` is ported: any other shape is
-refused, never run on fewer devices than asked for.
+finds by their step); and every device is explicit (``--device``,
+default the card, raising without one). ``--mesh_shape`` runs one
+process a device: its product must be the job's world size (torchrun's,
+or 1 in a plain process); any other shape is refused before anything is
+built, never run on fewer devices than asked for. On the CPU the ranks
+join by gloo (``--device cpu``), on the cards by NCCL.
 
     python -m rfi_toolbox_tpu_torch.cli.train_model \\
         --config configs/training/unet_default.yaml --batch_size 8
     python -m rfi_toolbox_tpu_torch.cli.train_model --instance --num_steps 1000
+    torchrun --nproc_per_node 8 -m rfi_toolbox_tpu_torch.cli.train_model \\
+        --config configs/training/unet_dp_tp.yaml     # (data 4, model 2)
 """
 
 import argparse
@@ -41,6 +45,8 @@ from ..config import ConfigLoader
 from ..data import ArrayDataset, RFIMaskDataset, StreamingDataset
 from ..evaluation import evaluate_instance_model
 from ..models import SOLOLite, create_model
+from ..parallel import initialize_distributed, make_mesh
+from ..parallel.mesh import world_size
 from ..train import (
     CoherentTrainer,
     InstanceTrainer,
@@ -83,24 +89,36 @@ def _augment(images, labels, rng):
     return np.stack(out_i), np.stack(out_l)
 
 
-def _check_mesh_shape(args):
-    """``--coherent`` parallelism is data-only, as in JAX; then any
-    ``--mesh_shape`` whose product is not 1 raises, since the port runs
-    on one device until ``parallel/`` is ported."""
+def _mesh_shape(args):
+    """``--mesh_shape`` as a tuple (None without one), checked before
+    anything is built: ``--coherent`` parallelism is data-only, as in JAX,
+    and the product must be the job's world size, since the port never
+    runs on fewer devices than asked for."""
     if not args.mesh_shape:
-        return
+        return None
     shape = tuple(int(x) for x in str(args.mesh_shape).split(","))
     if args.coherent and math.prod(shape[1:]) != 1:
         raise SystemExit(
             "--coherent parallelism is data-only; use "
             f"--mesh_shape {math.prod(shape)} (got {args.mesh_shape})"
         )
-    if math.prod(shape) != 1:
+    world = world_size()
+    if math.prod(shape) != world:
         raise SystemExit(
-            f"--mesh_shape {args.mesh_shape} asks for {math.prod(shape)} "
-            "devices; the port runs on one device until parallel/ is ported "
-            "(leave --mesh_shape out, or give 1)"
+            f"--mesh_shape {args.mesh_shape} asks for {math.prod(shape)} devices but "
+            f"this run has {world} process(es): start it as torchrun --nproc_per_node "
+            f"{math.prod(shape)} ... (one process a device), or give a shape whose "
+            f"product is {world}"
         )
+    return shape
+
+
+def _join(device):
+    """Join torchrun's process group (a plain process makes one of its
+    own in ``make_mesh``); a failed join raises."""
+    if world_size() > 1 and not initialize_distributed(
+            backend="gloo" if device.type == "cpu" else None):
+        raise SystemExit("torchrun's process group did not start (see the warning above)")
 
 
 def _latest_step_checkpoint(ckpt_dir):
@@ -111,11 +129,15 @@ def _latest_step_checkpoint(ckpt_dir):
     return max(ckpts, key=lambda p: int(p.stem.split("_", 1)[1]), default=None)
 
 
-def _train_coherent(args, given, device):
+def _train_coherent(args, given, device, shape):
     """``--coherent``: train an 8-channel UNet on coherent-simulator
     samples made on the card (the shipped-snapshot recipe,
     ``CoherentTrainer``), with checkpoint/resume, a closing held-out IoU
     threshold sweep and an optional .npz export."""
+    mesh = None
+    if shape:
+        mesh = make_mesh((shape[0],), axis_names=("data",), device_type=device.type)
+        logging.info("mesh: data=%d", shape[0])
     trainer = CoherentTrainer(
         init_features=(args.init_features if "init_features" in given
                        else 24),
@@ -125,6 +147,7 @@ def _train_coherent(args, given, device):
         weight_decay=args.weight_decay,
         ema_decay=args.ema_decay,
         seed=args.seed,
+        mesh=mesh,
         norm=args.norm,
         space_to_depth=args.space_to_depth,
         device=device,
@@ -176,7 +199,7 @@ def _load_event_config(path):
         return yaml.safe_load(text)
 
 
-def _train_instance(args, given, device):
+def _train_instance(args, given, device, shape):
     """``--instance``: train SOLOLite on synthetic event instances made on
     the card (the shipped-detector recipe, ``InstanceTrainer``), with
     checkpoint/resume, a closing held-out COCO-style quality eval and an
@@ -206,6 +229,7 @@ def _train_instance(args, given, device):
         seed=args.seed,
         mask_loss_stride=args.mask_loss_stride,
         max_positive_cells=args.max_positive_cells,
+        mesh_shape=shape,
         device=device,
     )
 
@@ -297,9 +321,10 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument(
         "--mesh_shape", type=str, default=None,
-        help="'data,model' device mesh (TrainingConfig.mesh_shape); the "
-        "port runs on one device, so any shape whose product is not 1 is "
-        "refused")
+        help="'data,model' device mesh, e.g. '4,2' = 4-way data x 2-way "
+        "tensor parallel (TrainingConfig.mesh_shape), one process a device: "
+        "run under torchrun --nproc_per_node <product>; a product other than "
+        "the run's process count is refused")
     parser.add_argument("--config", type=str, default=None,
                         help="YAML training config (ConfigLoader schema); "
                         "CLI flags given explicitly still win")
@@ -417,13 +442,15 @@ def main(argv=None):
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
-    _check_mesh_shape(args)
+    shape = _mesh_shape(args)
     device = resolve_device(args.device)
+    if shape:
+        _join(device)
 
     if args.coherent:
-        return _train_coherent(args, given, device)
+        return _train_coherent(args, given, device, shape)
     if args.instance:
-        return _train_instance(args, given, device)
+        return _train_instance(args, given, device, shape)
 
     if args.train_batches_dir:
         train_ds = StreamingDataset(args.train_batches_dir)
@@ -472,11 +499,14 @@ def main(argv=None):
         norm=args.norm, space_to_depth=args.space_to_depth,
     )
     lr = args.new_lr if (args.checkpoint_path and args.new_lr) else args.lr
+    if shape:
+        logging.info("mesh: data=%d x model=%d", *(shape + (1,))[:2])
     trainer = Trainer(
         model,
         learning_rate=lr,
         weight_decay=args.weight_decay,
         checkpoint_dir=args.checkpoint_dir,
+        mesh_shape=shape,
         seed=args.seed,
         device=device,
     )

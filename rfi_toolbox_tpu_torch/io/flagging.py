@@ -14,7 +14,9 @@ Counterpart of ``rfi_toolbox_tpu/io/flagging.py``:
 
 Complex visibilities go to the card as complex64 as they are (JAX stages
 them as two real planes for TPU runtimes that cannot copy complex types;
-the card can). The mesh-sharded path (``mesh=``) is not ported yet.
+the card can). With a mesh (``mesh=``; one process a device) each rank
+flags its waterfalls, or its patch-aligned slabs of one large waterfall,
+and the flags are gathered back to every rank.
 """
 
 import logging
@@ -23,6 +25,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import (
     fused_extract_channels,
@@ -30,6 +33,7 @@ from ..ops import (
     mad_flag_patches,
     mad_flag_patches_plain,
 )
+from ..parallel.mesh import batch_placement
 from ..preprocess import pipeline as P
 from ..train.coherent_trainer import robust_scale, to_8ch
 from ..utils.device import resolve_device
@@ -52,8 +56,23 @@ def _as_waterfalls(waterfalls, device):
     return x.contiguous()
 
 
+def _split_channels(flat, n_ax, patch_size):
+    """(M, C, T) -> (M * split, C_p / split, T) patch-aligned channel slabs
+    (C zero-padded to C_p, a whole number of patch rows a slab) so that M *
+    split covers ``n_ax`` where it can; returns the slabs and ``split``."""
+    m0, c0, t0 = flat.shape
+    rows = -(-c0 // patch_size)
+    split = min(rows, -(-n_ax // m0))
+    rows_p = -(-rows // split) * split
+    pad_c = rows_p * patch_size - c0
+    if pad_c:
+        flat = torch.cat([flat, flat.new_zeros((m0, pad_c, t0))], 1)
+    return flat.reshape(m0 * split, rows_p // split * patch_size, t0), split
+
+
 def flag_waterfalls(waterfalls, method="mad", sigma=5.0, patch_size=128,
-                    predictor=None, threshold=0.5, use_pallas="auto", device=None):
+                    predictor=None, threshold=0.5, use_pallas="auto", mesh=None,
+                    device=None):
     """Flag a batch of waterfalls.
 
     Args:
@@ -69,7 +88,15 @@ def flag_waterfalls(waterfalls, method="mad", sigma=5.0, patch_size=128,
             which launch the kernel on a CUDA tensor and run its plain
             version on a CPU tensor; False asks for the plain versions on
             any device (the JAX argument's name and meaning).
-        device: ``None`` for the CUDA card, or e.g. ``"cpu"``.
+        mesh: a :class:`~rfi_toolbox_tpu_torch.parallel.mesh.Mesh` with a
+            'data' axis; every rank passes the same waterfalls and gets all
+            the flags. Each rank flags its waterfalls (all of them where M
+            does not divide the axis: 15 baselines on 8 ranks still run).
+            When M is smaller than the axis and C larger than a patch, the
+            channel axis is first cut into patch-aligned slabs that become
+            extra waterfalls; flags are per patch, so the result is the
+            meshless one exactly.
+        device: ``None`` for the CUDA card (this rank's), or e.g. ``"cpu"``.
 
     Returns:
         (M, C, T) bool tensor on the device.
@@ -79,8 +106,19 @@ def flag_waterfalls(waterfalls, method="mad", sigma=5.0, patch_size=128,
     kernels = use_pallas is not False
     dev = resolve_device(device)
     flat = _as_waterfalls(waterfalls, dev)
+    m0, c0, t0 = flat.shape
+    split, rows = 1, None
+    if mesh is not None:
+        n_ax = mesh.shape["data"]
+        if m0 < n_ax and c0 > patch_size:
+            flat, split = _split_channels(flat, n_ax, patch_size)
+        rows = batch_placement(flat.shape[0], mesh)
+        if rows.axis is None:  # replicated: the whole batch on every rank
+            rows = None
+        else:
+            flat = rows.local(flat)
     m, c, t = flat.shape
-    patched = not (c <= patch_size and t <= patch_size)
+    patched = not (c <= patch_size and t <= patch_size and split == 1)
     patches = P.patchify_batch(flat, patch_size).contiguous() if patched else flat
 
     if method == "mad":
@@ -96,6 +134,13 @@ def flag_waterfalls(waterfalls, method="mad", sigma=5.0, patch_size=128,
 
     if patched:
         flags = P.unpatchify_batch(flags, m, c, t)
+    if rows is not None:
+        parts = [torch.empty_like(flags, dtype=torch.uint8) for _ in range(mesh.shape["data"])]
+        dist.all_gather(parts, flags.to(torch.uint8).contiguous(),
+                        group=mesh.get_group("data"))
+        flags = torch.cat(parts).bool()
+    if split > 1:
+        flags = flags.reshape(m0, -1, t0)[:, :c0]
     return flags
 
 
@@ -170,7 +215,7 @@ class _Stages:
 
 
 def _flag_block(vis, method, sigma, patch_size, predictor, threshold, use_pallas,
-                dev, stages):
+                mesh, dev, stages):
     """(B, P, C, T) complex128 host visibilities -> (B, P, C, T) bool host
     flags: one cast to complex64 on the host, one copy to the card, one
     flagging call, one copy back."""
@@ -190,7 +235,7 @@ def _flag_block(vis, method, sigma, patch_size, predictor, threshold, use_pallas
     else:
         flags = flag_waterfalls(x.reshape(b * p, c, t), method=method, sigma=sigma,
                                 patch_size=patch_size, predictor=predictor,
-                                threshold=threshold, use_pallas=use_pallas,
+                                threshold=threshold, use_pallas=use_pallas, mesh=mesh,
                                 device=dev)
         stages.mark("card")
         flags = flags.cpu().numpy().reshape(b, p, c, t)
@@ -201,7 +246,7 @@ def _flag_block(vis, method, sigma, patch_size, predictor, threshold, use_pallas
 def flag_measurement_set(ms, method="mad", sigma=5.0, patch_size=128, predictor=None,
                          threshold=0.5, num_antennas=None, mode="DATA", field_id=None,
                          merge_existing=False, use_pallas="auto", streaming=False,
-                         device=None, timings=None):
+                         mesh=None, device=None, timings=None):
     """Flag an entire measurement set and write the FLAG column back.
 
     Two modes:
@@ -225,7 +270,11 @@ def flag_measurement_set(ms, method="mad", sigma=5.0, patch_size=128, predictor=
         num_antennas: limit the ANTENNA1 loop (the reference's semantics).
         merge_existing: OR the new flags into the existing FLAG column.
         use_pallas: see :func:`flag_waterfalls`.
-        device: ``None`` for the CUDA card, or e.g. ``"cpu"``.
+        mesh: see :func:`flag_waterfalls` (``mad`` and ``model``; ignored,
+            with a warning, by ``model8``). Every rank loads the MS and
+            flags its share; rank 0 writes the FLAG column, the other
+            ranks wait for it and return the same result.
+        device: ``None`` for the CUDA card (this rank's), or e.g. ``"cpu"``.
         timings: optional dict; the host seconds of each stage are added
             to it under ``load``, ``to_card``, ``card``, ``to_host`` and
             ``save`` (the card is waited for at each stage's end).
@@ -234,9 +283,17 @@ def flag_measurement_set(ms, method="mad", sigma=5.0, patch_size=128, predictor=
         dict: {'baselines': int, 'flagged_fraction': float, 'failed': [...]}
     """
     dev = resolve_device(device)
+    if method == "model8" and mesh is not None:
+        logger.warning(
+            "mesh is ignored with method='model8': the 8-channel "
+            "predictor owns its device placement (AOT-compiled "
+            "single-device executable)"
+        )
     stages = _Stages(timings, dev)
     args = dict(method=method, sigma=sigma, patch_size=patch_size, predictor=predictor,
-                threshold=threshold, use_pallas=use_pallas, dev=dev, stages=stages)
+                threshold=threshold, use_pallas=use_pallas,
+                mesh=None if method == "model8" else mesh, dev=dev, stages=stages)
+    writer = mesh is None or dist.get_rank() == 0
     loader = MSLoader(ms, field_id=field_id)
     if not streaming:
         try:
@@ -252,7 +309,8 @@ def flag_measurement_set(ms, method="mad", sigma=5.0, patch_size=128, predictor=
                 ms, method=method, sigma=sigma, patch_size=patch_size,
                 predictor=predictor, threshold=threshold, num_antennas=num_antennas,
                 mode=mode, field_id=field_id, merge_existing=merge_existing,
-                use_pallas=use_pallas, streaming=True, device=device, timings=timings)
+                use_pallas=use_pallas, streaming=True, mesh=mesh, device=device,
+                timings=timings)
         stages.mark("load")
         if len(data) == 0:
             loader.close()
@@ -260,7 +318,9 @@ def flag_measurement_set(ms, method="mad", sigma=5.0, patch_size=128, predictor=
         flags = _flag_block(data, **args)
         if merge_existing:
             flags |= loader.load_flags()
-        loader.save_flags(flags)
+        if writer:
+            loader.save_flags(flags)
+        _wait_for_writer(mesh)
         loader.close()
         stages.mark("save")
         return {"baselines": data.shape[0], "flagged_fraction": float(flags.mean()),
@@ -305,12 +365,20 @@ def flag_measurement_set(ms, method="mad", sigma=5.0, patch_size=128, predictor=
         flags = _flag_block(data[None], **args)[0]
         if merge_existing:
             flags |= loader.load_baseline_flags(pair[0], pair[1], field_id=field_id)
-        loader.save_baseline_flags(pair[0], pair[1], flags, field_id=field_id)
+        if writer:
+            loader.save_baseline_flags(pair[0], pair[1], flags, field_id=field_id)
         stages.mark("save")
         total_flagged += float(flags.sum())
         total_pixels += flags.size
         n_done += 1
 
+    _wait_for_writer(mesh)
     loader.close()
     return {"baselines": n_done, "flagged_fraction": total_flagged / max(total_pixels, 1),
             "failed": failed}
+
+
+def _wait_for_writer(mesh):
+    """On a mesh, the ranks wait here until rank 0 has written."""
+    if mesh is not None:
+        dist.barrier()

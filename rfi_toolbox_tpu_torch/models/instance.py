@@ -36,9 +36,11 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.functional import all_reduce_partial
 from .unet import GROUP_NORM_EPS, Conv2d, GroupNorm, _at_least_f32, space_to_depth
 
 __all__ = [
@@ -252,7 +254,7 @@ def _focal_loss(logits, targets_onehot, alpha=0.25, gamma=2.0):
 
 
 def solo_loss(outputs, inst_masks, inst_classes, inst_valid, mask_weight=3.0,
-              mask_loss_stride=2, max_positive_cells=16):
+              mask_loss_stride=2, max_positive_cells=16, group=None):
     """Focal category loss + ``mask_weight`` x Dice mask loss on the
     positive cells.
 
@@ -267,6 +269,10 @@ def solo_loss(outputs, inst_masks, inst_classes, inst_valid, mask_weight=3.0,
         max_positive_cells: the Dice term takes the first P positive
             cells of each image (a stable sort of the cells by
             positivity) and builds only their masks; None takes all S².
+        group: a process group whose ranks each hold some rows of one
+            batch: the focal and Dice sums and the positive counts are
+            all-reduced over it (the sums' backward the identity), so the
+            loss is the whole batch's, as JAX's over a sharded batch.
 
     Returns:
         ``(total, {"cate_loss", "mask_loss", "dropped_mask_cells"})``, 0-d
@@ -278,8 +284,8 @@ def solo_loss(outputs, inst_masks, inst_classes, inst_valid, mask_weight=3.0,
     cate_t, mask_idx = assign_targets(inst_masks, inst_classes, inst_valid, s,
                                       num_classes)
     onehot = F.one_hot(cate_t.long(), num_classes + 1)[..., :num_classes].to(cate_logits.dtype)
-    cate_loss = (_focal_loss(cate_logits, onehot).sum()
-                 / (cate_t < num_classes).sum().clamp_min(1))
+    focal_sum = _focal_loss(cate_logits, onehot).sum()
+    cate_count = (cate_t < num_classes).sum()
 
     k = s * s
     flat_idx = mask_idx.reshape(b, k)
@@ -307,10 +313,17 @@ def solo_loss(outputs, inst_masks, inst_classes, inst_valid, mask_weight=3.0,
     inter = (probs * gt_per_cell).sum(dim=(2, 3))
     denom = probs.sum(dim=(2, 3)) + gt_per_cell.sum(dim=(2, 3))
     dice = 1.0 - (2 * inter + 1.0) / (denom + 1.0)
-    mask_loss = (dice * positive).sum() / positive.sum().clamp_min(1)
+    dice_sum = (dice * positive).sum()
+    counts = torch.stack([cate_count, positive.sum(), total_positive])
+    if group is not None:
+        focal_sum, dice_sum = all_reduce_partial(torch.stack([focal_sum, dice_sum]), group)
+        dist.all_reduce(counts, group=group)
+    cate_count, n_positive, total_positive = counts
+    cate_loss = focal_sum / cate_count.clamp_min(1)
+    mask_loss = dice_sum / n_positive.clamp_min(1)
 
     total = cate_loss + mask_weight * mask_loss
-    dropped = (total_positive - positive.sum()).to(torch.int32)
+    dropped = (total_positive - n_positive).to(torch.int32)
     return total, {"cate_loss": cate_loss, "mask_loss": mask_loss,
                    "dropped_mask_cells": dropped}
 

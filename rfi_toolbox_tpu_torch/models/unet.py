@@ -40,6 +40,8 @@ import math
 import torch
 from torch import nn
 
+from ..parallel.functional import all_reduce_sum, group_size
+
 __all__ = [
     "BatchNorm",
     "Conv2d",
@@ -83,16 +85,27 @@ class BatchNorm(nn.BatchNorm2d):
     bfloat16 input, whose output stays bfloat16) and then sets
     ``running = 0.9 * running + 0.1 * batch`` with the biased batch
     variance, as Flax stores it.
+
+    ``group``, a process group set by the trainer for its steps (None
+    otherwise), makes training mode take the statistics of the rows of
+    all the group's ranks, as Flax does over a batch sharded on a mesh:
+    each rank's sum, then its sum of squared deviations from the global
+    mean, all-reduced (a summing backward, since every rank's gradient
+    holds only its rows' share), with the same biased variance, eps and
+    momentum. ``nn.SyncBatchNorm`` would store the unbiased variance.
     """
 
     def __init__(self, features):
         super().__init__(features, eps=BATCH_NORM_EPS)
+        self.group = None
 
     def forward(self, x):
         if not self.training:
             return nn.functional.batch_norm(
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.eps)
+        if self.group is not None:
+            return self._forward_global(x)
         # momentum 1 leaves exactly the batch mean and the unbiased batch
         # variance in the two scratch vectors
         mean = torch.zeros_like(self.running_mean)
@@ -106,6 +119,21 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.mul_(FLAX_MOMENTUM).add_(biased, alpha=1 - FLAX_MOMENTUM)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _forward_global(self, x):
+        xf = x.to(_at_least_f32(x.dtype))
+        dims, shape = (0, 2, 3), (1, -1, 1, 1)
+        n = xf.numel() // xf.shape[1] * group_size(self.group)
+        mean = all_reduce_sum(xf.sum(dims), self.group) / n
+        centred = xf - mean.view(shape)
+        var = all_reduce_sum(centred.square().sum(dims), self.group) / n
+        y = centred * torch.rsqrt(var + self.eps).view(shape) * self.weight.view(shape)
+        y = y + self.bias.view(shape)
+        with torch.no_grad():
+            self.running_mean.mul_(FLAX_MOMENTUM).add_(mean, alpha=1 - FLAX_MOMENTUM)
+            self.running_var.mul_(FLAX_MOMENTUM).add_(var, alpha=1 - FLAX_MOMENTUM)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 class GroupNorm(nn.GroupNorm):

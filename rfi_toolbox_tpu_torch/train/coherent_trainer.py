@@ -16,11 +16,17 @@ behind the shipped ``pretrained/unet*_coherent8ch.npz`` snapshots:
 - checkpoints with the parameters, batch statistics, the EMA, Adam's
   moments and the step, so that a run continues rather than restarts.
 
-The device mesh (``mesh``) is not ported. Where the JAX trainer runs
-``fused_steps`` steps in one ``lax.scan``, this one runs them eagerly
-with no host sync between them. The samples of step ``i`` come from a
-``torch.Generator`` seeded by ``(seed, i)`` alone, so a resumed run
-continues the same stream. Held-out evaluation draws batch ``j`` from a
+Where the JAX trainer runs ``fused_steps`` steps in one ``lax.scan``,
+this one runs them eagerly with no host sync between them. The samples
+of step ``i`` come from a ``torch.Generator`` seeded by ``(seed, i)``
+alone, so a resumed run continues the same stream. On a mesh (``mesh``,
+data axis only; one process a device) every rank draws all of a step's
+random numbers (``RFISimulator.draw``: one generator, the whole batch,
+as JAX splits one key a sample over the mesh) and renders only its rows,
+so the samples are those of the meshless run; the loss and the
+BatchNorm statistics are the whole batch's, and the gradients are summed
+over the ranks (``train.trainer.train_step``). The draws of the other
+ranks' rows are each rank's extra cost. Held-out evaluation draws batch ``j`` from a
 generator seeded ``start_key + j`` (the pretrained gates' convention,
 with the port's own stream). Checkpoints are the port's own torch
 format (Orbax is JAX-only), read with ``weights_only=True``; ``load``
@@ -33,10 +39,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..evaluation.metrics import evaluate_segmentation_batch
 from ..models.convert import load_params, params_from_flax
 from ..models.unet import UNet
+from ..parallel.mesh import batch_sharding
 from ..synth.simulator import RFISimulator
 from ..utils.device import resolve_device
 from .trainer import _logits, create_train_state, export_params
@@ -87,6 +95,13 @@ def coherent_batch(generator, n, size):
     return robust_scale(to_8ch(tf)), mask
 
 
+def _map_tensors(fn, tree):
+    """``fn`` on every tensor of a dict of dicts of tensors."""
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def _stream_seed(seed, step):
     """The seed of step ``step``'s samples: a function of (seed, step)."""
     return int(np.random.SeedSequence([int(seed), 1, int(step)]).generate_state(1, np.uint64)[0])
@@ -100,7 +115,7 @@ class CoherentTrainer:
     >>> report = trainer.evaluate()           # held-out IoU sweep
     >>> trainer.export("unet24.npz", best_threshold=report["best_threshold"])
 
-    Args are the JAX trainer's, without ``mesh``:
+    Args are the JAX trainer's:
         model: the port's UNet with ``in_channels=8``; by default
             ``UNet(in_channels=8, init_features, norm, space_to_depth)``
             in ``dtype``.
@@ -116,12 +131,15 @@ class CoherentTrainer:
         norm: ``"batch"`` (reference parity) or ``"group"`` (recommended
             for long runs: no train/eval inconsistency).
         space_to_depth: the 2x2-packed UNet variant.
-        device: ``None`` for the CUDA card, or e.g. ``"cpu"``.
+        mesh: a :class:`~rfi_toolbox_tpu_torch.parallel.mesh.Mesh`; the
+            batch is split over its 'data' axis, which it must divide.
+        device: ``None`` for the CUDA card (this rank's), or e.g. ``"cpu"``.
     """
 
     def __init__(self, model=None, init_features=24, size=256, batch_size=16,
                  learning_rate=None, weight_decay=1e-5, ema_decay=0.999, flips=True,
-                 seed=2, dtype="auto", norm="batch", space_to_depth=False, device=None):
+                 seed=2, dtype="auto", mesh=None, norm="batch", space_to_depth=False,
+                 device=None):
         self.device = resolve_device(device)
         if dtype == "auto":
             dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
@@ -137,6 +155,14 @@ class CoherentTrainer:
         self.ema_decay = ema_decay
         self.flips = flips
         self.seed = seed
+        if mesh is not None:
+            ndata = mesh.shape.get("data", 1)
+            if batch_size % ndata:
+                raise ValueError(
+                    f"batch_size={batch_size} must divide the mesh's "
+                    f"'data' axis ({ndata})"
+                )
+        self.mesh = mesh
         self.schedule = None
         self.state = None
         self.ema_params = None
@@ -148,17 +174,31 @@ class CoherentTrainer:
         return 0 if self.state is None else self.state.step
 
     # -- data ---------------------------------------------------------------
+    def _rows(self):
+        """This rank's rows of a batch, and the group its partial sums add
+        up over (all rows and None without a mesh)."""
+        if self.mesh is None or self.mesh.shape.get("data", 1) == 1:
+            return None, None
+        pl = batch_sharding(self.mesh)
+        return pl, pl.group
+
     def sample(self, step):
         """The (x (B, size, size, 8) float32, y (B, size, size) float32)
         batch of step ``step``, drawn from a generator seeded by ``(seed,
-        step)`` alone."""
+        step)`` alone; on a mesh this rank's rows of it."""
         g = torch.Generator(device=self.device).manual_seed(_stream_seed(self.seed, step))
-        tf, mask = self.sim.generate_rfi_device(self.batch_size, g)
+        rows, _ = self._rows()
+        draws = self.sim.draw(self.batch_size, g)
+        if rows is not None:
+            draws = _map_tensors(rows.local, draws)
+        tf, mask = self.sim.render(draws)
         x = robust_scale(to_8ch(tf))
         y = mask.to(torch.float32)
         if self.flips:
             for axis in (1, 2):  # time, then frequency
                 flip = torch.rand(self.batch_size, generator=g, device=self.device) < 0.5
+                if rows is not None:
+                    flip = rows.local(flip)
                 flip = flip.view(-1, 1, 1)
                 x = torch.where(flip[..., None], x.flip(axis), x)
                 y = torch.where(flip, y.flip(axis), y)
@@ -191,9 +231,9 @@ class CoherentTrainer:
         """One step on a given batch, x (B, H, W, 8) and y (B, H, W) float
         tensors on the device: loss, clip, AdamW, EMA (the reference's
         ``one_step`` after its generation and flips), on the state that
-        ``fit``, ``restore_checkpoint`` or ``load`` set up. Returns the
-        loss, a 0-d tensor on the device."""
-        _, loss = _train_step(self.state, x, y)
+        ``fit``, ``restore_checkpoint`` or ``load`` set up (on a mesh, this
+        rank's rows). Returns the loss, a 0-d tensor on the device."""
+        _, loss = _train_step(self.state, x, y, self._rows()[1])
         self._update_ema()
         return loss
 
@@ -315,12 +355,16 @@ class CoherentTrainer:
 
     def save_checkpoint(self, path):
         """Save parameters, batch statistics, EMA, Adam's moments and the
-        step to ``path`` (a ``torch.save`` file); returns ``path``."""
+        step to ``path`` (a ``torch.save`` file); returns ``path``. On a
+        mesh every rank calls it and rank 0 writes."""
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
         st = self.state
-        torch.save({"model": st.model.state_dict(), "mu": st.mu, "nu": st.nu,
-                    "ema_params": self.ema_params, "step": st.step}, path)
+        if self.mesh is None or dist.get_rank() == 0:
+            torch.save({"model": st.model.state_dict(), "mu": st.mu, "nu": st.nu,
+                        "ema_params": self.ema_params, "step": st.step}, path)
+        if self.mesh is not None:
+            dist.barrier()
         return path
 
     def restore_checkpoint(self, path, num_steps_hint=None):

@@ -15,10 +15,14 @@ Counterpart of ``rfi_toolbox_tpu/train/instance_trainer.py``
   mask loss), then clip-by-global-norm 1.0 and AdamW (``TrainState``'s
   optax-equivalent chain) at a float or a schedule, in float32.
 
-The device mesh (``mesh``, ``mesh_shape``) is not ported. Where the JAX
-trainer runs ``fused_steps`` steps in one ``lax.scan``, this one runs
-them eagerly with no host sync between them, with the same numbers as
-one step at a time. The samples of step ``i`` come from a
+Where the JAX trainer runs ``fused_steps`` steps in one ``lax.scan``,
+this one runs them eagerly with no host sync between them, with the
+same numbers as one step at a time. On a mesh (``mesh`` or
+``mesh_shape``, data axis only; one process a device) every rank
+generates each step's whole batch from the step's generator and keeps
+its rows (the other rows' generation is each rank's extra cost):
+the positive counts of ``solo_loss`` are the batch's, and the gradients
+are summed over the ranks. The samples of step ``i`` come from a
 ``torch.Generator`` seeded by ``(seed, i)`` alone (the JAX
 ``fold_in(base, step)`` with the port's own stream), so chunked ``fit``
 calls and restored runs continue the stream. Checkpoints are the port's
@@ -26,15 +30,19 @@ own torch format (Orbax is JAX-only), read with ``weights_only=True``;
 ``save`` writes, and ``load`` reads, the JAX package's snapshot.
 """
 
+import math
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import ops
 from ..models.convert import save_params, sololite_from_snapshot, sololite_to_flax
 from ..models.instance import SOLOLite, solo_decode, solo_loss
+from ..parallel.functional import all_reduce_grads
+from ..parallel.mesh import batch_placement, make_mesh, shard_batch
 from ..synth.sample import make_instance_sample_generator
 from ..utils.device import resolve_device
 from .coherent_trainer import _stream_seed
@@ -50,7 +58,7 @@ DEFAULT_RFI_CONFIG = {
 }
 
 
-def make_instance_train_step(mask_loss_stride=2, max_positive_cells=16):
+def make_instance_train_step(mask_loss_stride=2, max_positive_cells=16, group=None):
     """A step ``(state, patches, inst_masks, inst_classes, inst_valid) ->
     (state, loss, parts)`` for SOLOLite on complex (B, p, p) patches and
     their instance targets: the extraction (K4, which on a CPU tensor is
@@ -58,33 +66,48 @@ def make_instance_train_step(mask_loss_stride=2, max_positive_cells=16):
     update of ``state`` (a ``TrainState``), in place, without a host
     sync. ``loss`` and the ``parts`` are 0-d tensors on the device.
     ``max_positive_cells`` caps the positive cells of the Dice term (the
-    loss reports ``dropped_mask_cells`` when it truncates)."""
+    loss reports ``dropped_mask_cells`` when it truncates). With
+    ``group``, each batch is this rank's rows of one spread over the
+    group's ranks: the loss is the whole batch's and the gradients are
+    summed over the group."""
 
     def step(state, patches, inst_masks, inst_classes, inst_valid):
         images = ops.fused_extract_channels(patches.contiguous())
         loss, parts = solo_loss(state.model(images), inst_masks, inst_classes, inst_valid,
                                 mask_loss_stride=mask_loss_stride,
-                                max_positive_cells=max_positive_cells)
-        grads = torch.autograd.grad(loss, state.params)
-        state.apply_gradients(list(grads))
+                                max_positive_cells=max_positive_cells, group=group)
+        grads = list(torch.autograd.grad(loss, state.params))
+        if group is not None:
+            grads = all_reduce_grads(grads, group)
+        state.apply_gradients(grads)
         return state, loss.detach(), {k: v.detach() for k, v in parts.items()}
 
     return step
 
 
+def _group(batch_size, mesh):
+    """The group a batch's partial sums add up over: None without a mesh,
+    or where the batch does not divide its data axis (replicated)."""
+    return None if mesh is None else batch_placement(batch_size, mesh).group
+
+
 def make_instance_fused_steps(sample_fn, batch_size, mask_loss_stride=2,
-                              max_positive_cells=16):
+                              max_positive_cells=16, mesh=None):
     """K steps with their batch generation, queued with no host sync:
     ``(state, generators) -> (state, losses (K,), last_parts)``, one step
     a ``torch.Generator``, each drawing its batch of ``batch_size`` from
     ``sample_fn`` (``make_instance_sample_generator``'s). The numbers are
-    K :func:`make_instance_train_step` steps' on the same draws."""
-    one_step = make_instance_train_step(mask_loss_stride, max_positive_cells)
+    K :func:`make_instance_train_step` steps' on the same draws. With
+    ``mesh`` (a 'data' axis) each rank keeps its rows of each batch."""
+    one_step = make_instance_train_step(mask_loss_stride, max_positive_cells,
+                                        _group(batch_size, mesh))
 
     def steps(state, generators):
         losses, parts = [], None
         for g in generators:
             batch = sample_fn(batch_size, g)
+            if mesh is not None:
+                batch = shard_batch(batch, mesh)
             state, loss, parts = one_step(state, batch["waterfall"], batch["inst_masks"],
                                           batch["inst_classes"], batch["inst_valid"])
             losses.append(loss)
@@ -99,7 +122,8 @@ class InstanceTrainer:
     >>> trainer = InstanceTrainer(patch_size=128, batch_size=64)
     >>> result = trainer.fit(num_steps=100, fused_steps=10)
 
-    Args are the JAX trainer's, without ``mesh``/``mesh_shape``:
+    Args are the JAX trainer's but ``use_pallas`` (K4 runs on the card,
+    its plain version on the CPU):
         model: a SOLOLite; by default ``SOLOLite(num_classes=6,
             grid_size=max(patch_size // 16, 4))``.
         rfi_config: the event mix (default: 1-3 narrowband persistent,
@@ -111,15 +135,32 @@ class InstanceTrainer:
             real-patch draws.
         mask_loss_stride, max_positive_cells: :func:`solo_loss`'s.
         noise_level, rfi_power_min, rfi_power_max: the generator's.
-        device: ``None`` for the CUDA card, or e.g. ``"cpu"``.
+        mesh: a :class:`~rfi_toolbox_tpu_torch.parallel.mesh.Mesh` whose
+            'data' axis splits each batch.
+        mesh_shape: builds a data-only mesh of ``mesh_shape[0]``
+            processes (the other axes must be 1); exclusive with ``mesh``.
+        device: ``None`` for the CUDA card (this rank's), or e.g. ``"cpu"``.
     """
 
     def __init__(self, model=None, patch_size=128, batch_size=64, rfi_config=None,
-                 learning_rate=1e-3, weight_decay=1e-5, seed=0, mask_loss_stride=2, max_positive_cells=16, noise_level=1.0,
-                 rfi_power_min=1000.0, rfi_power_max=10000.0, device=None):
+                 learning_rate=1e-3, weight_decay=1e-5, seed=0, mask_loss_stride=2,
+                 max_positive_cells=16, noise_level=1.0, rfi_power_min=1000.0,
+                 rfi_power_max=10000.0, mesh=None, mesh_shape=None, device=None):
         self.device = resolve_device(device)
         self.model = model if model is not None else SOLOLite(
             num_classes=6, grid_size=max(patch_size // 16, 4))
+        if mesh is not None and mesh_shape is not None:
+            raise ValueError("pass either mesh or mesh_shape, not both")
+        if mesh_shape is not None:
+            shape = tuple(mesh_shape)
+            if len(shape) > 1 and math.prod(shape[1:]) != 1:
+                raise ValueError(
+                    "InstanceTrainer parallelism is data-only; "
+                    f"mesh_shape {shape} implies non-data axes"
+                )
+            mesh = make_mesh(shape=(shape[0],), axis_names=("data",),
+                             device_type=self.device.type)
+        self.mesh = mesh
         self.patch_size = int(patch_size)
         self.batch_size = int(batch_size)
         self.learning_rate = learning_rate
@@ -130,9 +171,10 @@ class InstanceTrainer:
             rfi_config=DEFAULT_RFI_CONFIG if rfi_config is None else rfi_config,
             noise_level=noise_level, rfi_power_min=rfi_power_min,
             rfi_power_max=rfi_power_max, device=self.device)
-        self._step = make_instance_train_step(mask_loss_stride, max_positive_cells)
+        self._step = make_instance_train_step(mask_loss_stride, max_positive_cells,
+                                              _group(self.batch_size, mesh))
         self._fused = make_instance_fused_steps(self._sample_fn, self.batch_size,
-                                                mask_loss_stride, max_positive_cells)
+                                                mask_loss_stride, max_positive_cells, mesh)
         self.state = None
 
     @property
@@ -218,9 +260,13 @@ class InstanceTrainer:
                     patches, valid = patches.clone(), valid.clone()
                     patches[:n_real] = real[sel.to(real.device)].to(patches.device)
                     valid[:n_real] = False
-                self.state, loss, parts = self._step(self.state, patches,
+                batch = {**batch, "waterfall": patches, "inst_valid": valid}
+                if self.mesh is not None:
+                    batch = shard_batch(batch, self.mesh)
+                self.state, loss, parts = self._step(self.state, batch["waterfall"],
                                                      batch["inst_masks"],
-                                                     batch["inst_classes"], valid)
+                                                     batch["inst_classes"],
+                                                     batch["inst_valid"])
                 step_i += 1
             if step_i >= next_log or step_i >= num_steps:
                 log(step_i, loss, parts)
@@ -249,14 +295,18 @@ class InstanceTrainer:
     # -- persistence --------------------------------------------------------
     def save_checkpoint(self, path):
         """Save the parameters, Adam's moments and the step to ``path`` (a
-        ``torch.save`` file); returns ``path``."""
+        ``torch.save`` file); returns ``path``. On a mesh every rank calls
+        it and rank 0 writes."""
         if self.state is None:
             raise ValueError("nothing to checkpoint; train or _init first")
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
         st = self.state
-        torch.save({"model": st.model.state_dict(), "mu": st.mu, "nu": st.nu,
-                    "step": st.step}, path)
+        if self.mesh is None or dist.get_rank() == 0:
+            torch.save({"model": st.model.state_dict(), "mu": st.mu, "nu": st.nu,
+                        "step": st.step}, path)
+        if self.mesh is not None:
+            dist.barrier()
         return path
 
     def restore_checkpoint(self, path):

@@ -2,7 +2,7 @@
 
 Counterpart of ``rfi_toolbox_tpu/train/trainer.py``: ``create_train_state``,
 ``train_step``, ``train_steps``, ``eval_step``, ``Trainer`` (``fit``,
-checkpoints, ``predict``) without the device mesh, ``export_params`` and
+checkpoints, ``predict``, the device mesh), ``export_params`` and
 ``load_params``.
 
 The optimiser is optax's ``chain(clip_by_global_norm(1.0),
@@ -32,18 +32,46 @@ Checkpoints are the port's own (``torch.save`` of the model's
 ``state_dict``, Adam's moments, the step, epoch and loss): Orbax is
 JAX-only. ``export_params`` writes the JAX package's ``.npz`` inference
 snapshot, which both packages' ``load_params`` read.
+
+On a mesh (``Trainer(mesh=...)`` or ``mesh_shape=(data, model)``; one
+process a device, see :mod:`rfi_toolbox_tpu_torch.parallel`) every rank
+walks the same batch order and takes its rows of each batch (the whole
+batch where it does not divide the ``data`` axis). The loss and the
+BatchNorm statistics are those of the whole batch (all-reduced partial
+sums), each rank's gradient is its rows' share, and the shares are
+summed over ``data`` before the global-norm clip and AdamW. With a
+``model`` axis above 1 the wide convs are tensor parallel
+(``parallel.mesh.shard_params_tensor_parallel``), and the clip's norm
+counts each sharded tensor once. Rank 0 writes checkpoints of the full
+(gathered) state in the meshless format, so that a run restores on any
+mesh.
 """
 
+import contextlib
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.batched_dataset import ArrayDataset, StreamingDataset
 from ..evaluation.metrics import evaluate_segmentation_batch
 from ..models.convert import load_params, params_to_flax, save_params
-from ..models.unet import flax_init_
+from ..models.unet import BatchNorm, flax_init_
+from ..parallel.functional import (
+    all_reduce_grads,
+    gather_shard,
+    global_grad_norm,
+    group_size,
+    local_shard,
+)
+from ..parallel.mesh import (
+    batch_placement,
+    gather_tensor_parallel_state,
+    make_mesh,
+    shard_params_tensor_parallel,
+)
 from ..serving import predict_mask
 from ..utils.device import resolve_device
 from .losses import bce_dice_loss
@@ -92,7 +120,7 @@ class TrainState:
         if callable(lr):
             lr = lr(self.step)
         self.step += 1
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = global_grad_norm(grads, self.params)
         # optax: t if norm < max_norm else (t / norm) * max_norm; below the
         # threshold the divisor and the factor are both exactly 1
         below = norm < self.clip_norm
@@ -179,34 +207,63 @@ def _logits(model, images):
     return model(x)[:, 0]
 
 
-def train_step(state, images, labels):
+@contextlib.contextmanager
+def batch_norm_group(model, group):
+    """Within the block, ``model``'s BatchNorms take their training
+    statistics over ``group``'s rows (none with ``group`` None)."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None
+
+
+def train_step(state, images, labels, group=None):
     """One optimisation step on (B, H, W, 3) images and (B, H, W) labels.
     Updates ``state`` in place and returns ``(state, loss)``, the loss a
     0-d float32 tensor on the device (read it when needed: reading it
-    waits for the card)."""
+    waits for the card). With ``group``, the images are this rank's rows
+    of a batch spread over the group's ranks: the loss and the BatchNorm
+    statistics are the whole batch's, and the gradients are summed over
+    the group before the update."""
     state.model.train()
-    loss = bce_dice_loss(_logits(state.model, images), labels)
-    grads = torch.autograd.grad(loss, state.params)
-    state.apply_gradients(list(grads))
+    with batch_norm_group(state.model, group):
+        loss = bce_dice_loss(_logits(state.model, images), labels, group=group)
+        grads = list(torch.autograd.grad(loss, state.params))
+    if group is not None:
+        grads = all_reduce_grads(grads, group)
+    state.apply_gradients(grads)
     return state, loss.detach()
 
 
-def train_steps(state, images, labels):
+def train_steps(state, images, labels, group=None):
     """S optimisation steps on images (S, B, H, W, 3) and labels
     (S, B, H, W); the same numbers as S :func:`train_step` calls.
     Returns ``(state, losses)`` with losses (S,) on the device."""
-    losses = [train_step(state, images[s], labels[s])[1]
+    losses = [train_step(state, images[s], labels[s], group)[1]
               for s in range(images.shape[0])]
     return state, torch.stack(losses)
 
 
 @torch.no_grad()
-def eval_step(state, images, labels):
+def eval_step(state, images, labels, group=None):
     """Loss and ``sigmoid(logits) > 0.5`` masks with the running
-    statistics (eval mode)."""
+    statistics (eval mode); the loss over ``group``'s rows when given."""
     state.model.eval()
     logits = _logits(state.model, images)
-    return bce_dice_loss(logits, labels), torch.sigmoid(logits) > 0.5
+    return bce_dice_loss(logits, labels, group=group), torch.sigmoid(logits) > 0.5
+
+
+def _batch_mean(values, group):
+    """The mean of per-sample ``values`` over ``group``'s rows."""
+    if group is None:
+        return values.mean()
+    total = values.sum()
+    dist.all_reduce(total, group=group)
+    return total / (values.numel() * group_size(group))
 
 
 def _grouped(batches, k, shape=len):
@@ -256,7 +313,7 @@ def _load_if_file(dataset):
 
 
 class Trainer:
-    """Segmentation trainer on one device.
+    """Segmentation trainer, on one device or on a mesh of them.
 
     >>> trainer = Trainer(model, checkpoint_dir="ckpts")
     >>> result = trainer.fit(train_ds, val_ds, num_epochs=10, batch_size=32)
@@ -264,40 +321,90 @@ class Trainer:
     Args:
         model: the port's UNet.
         learning_rate, weight_decay: AdamW's (the JAX defaults).
-        checkpoint_dir: where ``fit`` saves checkpoints (none if None).
+        checkpoint_dir: where ``fit`` saves checkpoints (none if None; on
+            a mesh a directory every rank sees).
+        mesh: a :class:`~rfi_toolbox_tpu_torch.parallel.mesh.Mesh` with a
+            'data' axis (and optionally 'model' for tensor parallelism);
+            every rank of the job builds its ``Trainer`` and calls ``fit``
+            with the same arguments.
+        mesh_shape: (data, model), or (data,): builds that mesh over the
+            job's processes (``parallel.make_mesh``); exclusive with ``mesh``.
+        tp_min_features: the fewest conv output channels sharded over
+            'model' (narrower convs stay replicated).
         seed: seeds Flax's initialisers for a fresh state and each epoch's
             shuffle (``np.random.default_rng((seed, epoch))``, the JAX
             order); a state set on ``trainer.state`` before ``fit`` is
             trained as it is.
-        device: ``None`` for the CUDA card, or e.g. ``"cpu"``.
+        device: ``None`` for the CUDA card (this rank's), or e.g. ``"cpu"``.
     """
 
     def __init__(self, model, learning_rate=1e-4, weight_decay=1e-5,
-                 checkpoint_dir=None, seed=0, device=None):
+                 checkpoint_dir=None, mesh=None, mesh_shape=None, tp_min_features=256,
+                 seed=0, device=None):
         self.model = model
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
         self.checkpoint_dir = Path(checkpoint_dir) if checkpoint_dir else None
-        self.seed = seed
+        if mesh is not None and mesh_shape is not None:
+            raise ValueError("pass either mesh or mesh_shape, not both")
         self.device = resolve_device(device)
+        if mesh_shape is not None:
+            shape = tuple(mesh_shape) + (1,) * (2 - len(mesh_shape))  # (data,) -> (data, 1)
+            mesh = make_mesh(shape=shape, axis_names=("data", "model"),
+                             device_type=self.device.type)
+        self.mesh = mesh
+        self.tp_min_features = tp_min_features
+        self.seed = seed
         self.state = None
         self.history = []
 
+    @property
+    def _tp_axis_size(self):
+        return 1 if self.mesh is None else self.mesh.shape.get("model", 1)
+
     def _init_state(self):
-        return create_train_state(self.model, self.seed, self.learning_rate,
-                                  self.weight_decay, device=self.device)
+        state = create_train_state(self.model, self.seed, self.learning_rate,
+                                   self.weight_decay, device=self.device)
+        if self._tp_axis_size > 1:
+            # every rank made the same full weights from the seed; each now
+            # keeps its chunk of the wide convs, and Adam's moments are
+            # made on the chunks
+            shard_params_tensor_parallel(state.model, self.mesh, self.tp_min_features)
+            state = TrainState(state.model, self.learning_rate, self.weight_decay)
+        return state
+
+    def _shard_stacked(self, *arrays, dim=1):
+        """This rank's rows (along ``dim``, the batch's) of each array, and
+        the group to sum partial results over (None when the batch is
+        replicated, or without a mesh)."""
+        if self.mesh is None:
+            return arrays, None
+        pl = batch_placement(arrays[0].shape[dim], self.mesh)
+        return tuple(pl.local(torch.as_tensor(a), dim) for a in arrays), pl.group
 
     # -- checkpoints --------------------------------------------------------
     def save_checkpoint(self, name, epoch, loss):
         """Save the state under ``checkpoint_dir / (name + ".pt")``; returns
-        the path, or None without a checkpoint directory."""
+        the path, or None without a checkpoint directory. On a mesh every
+        rank calls it: the tensor-parallel chunks are gathered, rank 0
+        writes the full state (the meshless format), and the ranks wait
+        for the write."""
         if self.checkpoint_dir is None:
             return None
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
         path = (self.checkpoint_dir / f"{name}.pt").absolute()
         st = self.state
-        torch.save({"model": st.model.state_dict(), "mu": st.mu, "nu": st.nu,
-                    "step": st.step, "epoch": int(epoch), "loss": float(loss)}, path)
+        model, mu, nu = st.model.state_dict(), st.mu, st.nu
+        if self._tp_axis_size > 1:
+            shards = [getattr(p, "tp_shard", None) for p in st.params]
+            model = gather_tensor_parallel_state(st.model)
+            mu = [gather_shard(m, sh) for m, sh in zip(mu, shards)]
+            nu = [gather_shard(v, sh) for v, sh in zip(nu, shards)]
+        if self.mesh is None or dist.get_rank() == 0:
+            torch.save({"model": model, "mu": mu, "nu": nu, "step": st.step,
+                        "epoch": int(epoch), "loss": float(loss)}, path)
+        if self.mesh is not None:
+            dist.barrier()
         return path
 
     def latest_checkpoint(self):
@@ -315,10 +422,11 @@ class Trainer:
         if self.state is None:
             self.state = self._init_state()
         st = self.state
-        st.model.load_state_dict(tree["model"])
+        st.model.load_state_dict(tree["model"])  # tensor-parallel convs take their chunk
+        shards = [getattr(p, "tp_shard", None) for p in st.params] * 2
         with torch.no_grad():
-            for dst, src in zip(st.mu + st.nu, tree["mu"] + tree["nu"]):
-                dst.copy_(src)
+            for dst, src, sh in zip(st.mu + st.nu, tree["mu"] + tree["nu"], shards):
+                dst.copy_(local_shard(src, sh))
         st.step = int(tree["step"])
         return int(tree.get("epoch", 0))
 
@@ -332,14 +440,15 @@ class Trainer:
         y = torch.as_tensor(labels).to(self.device, torch.float32)
         return x, y
 
-    def _train_group(self, images, labels):
+    def _train_group(self, images, labels, group=None):
         """S minibatches stacked, images (S, B, H, W, C) and labels (S, B,
-        H, W) on the device: :func:`train_steps`, or :func:`train_step` for
-        S = 1; returns the S losses."""
+        H, W) on the device (this rank's rows, spread over ``group``):
+        :func:`train_steps`, or :func:`train_step` for S = 1; returns the S
+        losses."""
         if images.shape[0] > 1:
-            self.state, losses = train_steps(self.state, images, labels)
+            self.state, losses = train_steps(self.state, images, labels, group)
             return list(losses)
-        self.state, loss = train_step(self.state, images[0], labels[0])
+        self.state, loss = train_step(self.state, images[0], labels[0], group)
         return [loss]
 
     def fit(self, train_dataset, val_dataset=None, num_epochs=10, batch_size=8,
@@ -359,7 +468,9 @@ class Trainer:
         order. Groups of up to ``fused_steps`` minibatches go to
         :func:`train_steps`. A NaN validation loss stops training.
         ``log_every`` is accepted for the JAX signature and unused, as
-        there.
+        there. On a mesh every rank reads the whole dataset (and streams
+        every file) and keeps its rows of each minibatch; the history,
+        losses and metrics of the whole batches, is the same on every rank.
         """
         del log_every
         train_dataset = _load_if_file(train_dataset)
@@ -392,12 +503,14 @@ class Trainer:
             if train_stream is not None:
                 batches = (self._tensors(b) for b in train_stream.iter_epoch(batch_size, rng))
                 for group in _grouped(batches, k, _images_shape):
-                    losses.extend(self._train_group(torch.stack([b[0] for b in group]),
-                                                    torch.stack([b[1] for b in group])))
+                    (x, y), rows = self._shard_stacked(torch.stack([b[0] for b in group]),
+                                                       torch.stack([b[1] for b in group]))
+                    losses.extend(self._train_group(x, y, rows))
             else:
                 for group in _grouped(_batch_indices(len(images), batch_size, rng), k):
-                    idx = torch.as_tensor(np.stack(group), device=self.device)
-                    losses.extend(self._train_group(images[idx], labels[idx]))
+                    (idx,), rows = self._shard_stacked(np.stack(group))
+                    idx = torch.as_tensor(idx, device=self.device)
+                    losses.extend(self._train_group(images[idx], labels[idx], rows))
             train_loss = float(torch.stack(losses).mean())
             record = {"epoch": epoch + 1, "train_loss": train_loss,
                       "seconds": time.perf_counter() - t0}
@@ -411,10 +524,11 @@ class Trainer:
                         torch.as_tensor(s, device=self.device)
                         for s in _batch_indices(len(val[0]), batch_size)))
                 for bi, bl in val_batches:
-                    loss, preds = eval_step(self.state, bi, bl)
+                    (bi, bl), rows = self._shard_stacked(bi, bl, dim=0)
+                    loss, preds = eval_step(self.state, bi, bl, rows)
                     val_losses.append(loss)
                     m = evaluate_segmentation_batch(preds, bl > 0.5)
-                    metrics.append({k: float(v.mean()) for k, v in m.items()})
+                    metrics.append({k: float(_batch_mean(v, rows)) for k, v in m.items()})
                 if not val_losses:
                     raise ValueError("validation dataset produced no batches")
                 val_loss = float(torch.stack(val_losses).mean())
@@ -445,7 +559,9 @@ class Trainer:
         """(N, H, W) bool masks, on the trainer's device, for (N, H, W, C)
         images, with the running statistics. Every chunk, the last one too,
         is zero-padded to ``batch_size`` images, as the JAX ``predict``
-        does; ``tta`` averages the probabilities of the four flips."""
+        does; ``tta`` averages the probabilities of the four flips. On a
+        mesh every rank predicts every image; with tensor parallelism the
+        call is a collective (all ranks make it)."""
         model = self.state.model.eval()
         x = torch.as_tensor(images).to(self.device, torch.float32)
         n = x.shape[0]

@@ -12,8 +12,9 @@ against the JAX package's commands, on the CPU.
   factories and the dataset loaders replaced by recorders (nothing
   trains); every argv case records the same constructor and ``fit``
   arguments, the instance schedule compared by value (1e-6 relative).
-- ``--mesh_shape``: JAX's data-only message for ``--coherent``; any
-  other shape whose product is not 1 refused.
+- ``--mesh_shape``: JAX's data-only message for ``--coherent``; in this
+  (one) process any shape whose product is not 1 refused; a product
+  equal to the world size runs (``test_torch_parallel_cli.py``).
 - with no card, every command but the host-only normalize raises unless
   ``--device cpu`` is given.
 """
@@ -456,7 +457,7 @@ def test_mesh_shape_beyond_one_device_is_refused(monkeypatch, tmp_path, argv):
     monkeypatch.chdir(ROOT)
     with monkeypatch.context() as m:
         _patch_port(m, _recorders(log := []))
-        with pytest.raises(SystemExit, match="runs on one device until parallel/ is ported"):
+        with pytest.raises(SystemExit, match=r"asks for \d+ devices but this run has 1 "):
             port_train_cli.main(argv + ["--checkpoint_dir", str(tmp_path), "--device", "cpu"])
     assert log == []  # refused before anything was built
 

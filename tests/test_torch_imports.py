@@ -23,7 +23,8 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "tools" / "torch_train_profile.py",
                                          ROOT / "tools" / "conv_library_kernels.py",
-                                         ROOT / "tools" / "instance_grad_float64.py"]
+                                         ROOT / "tools" / "instance_grad_float64.py",
+                                         ROOT / "tests" / "torch_parallel_ranks.py"]
 
 
 def test_import_leaves_jax_out():
@@ -67,6 +68,14 @@ def test_import_leaves_jax_out():
         "rfi_toolbox_tpu_torch.utils.profiling\n"
         "from rfi_toolbox_tpu_torch.config import ConfigLoader, TrainingConfig, validate_all\n"
         "from rfi_toolbox_tpu_torch.utils import StepTimer, trace, annotate, ConfigValidationError\n"
+        "import rfi_toolbox_tpu_torch.parallel, rfi_toolbox_tpu_torch.parallel.mesh, "
+        "rfi_toolbox_tpu_torch.parallel.spatial, rfi_toolbox_tpu_torch.parallel.distributed, "
+        "rfi_toolbox_tpu_torch.parallel.functional\n"
+        "from rfi_toolbox_tpu_torch.parallel import (make_mesh, replicated, batch_sharding, "
+        "shard_batch, shard_params_tensor_parallel, shard_waterfalls, initialize_distributed, "
+        "global_mesh, process_info)\n"
+        "from rfi_toolbox_tpu_torch.parallel.spatial import preprocess_sharded, "
+        "sharded_global_stats\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
