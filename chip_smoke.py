@@ -20,8 +20,11 @@ exit) if any phase fails:
    body; the same report of K1's, K2's and K4's kernel (one template,
    12 instances), its dynamic shared memory and its cluster launch
    (clusters of 4 CTAs that fit on the card, CTAs an SM), for each of
-   the three; the same report of the strip kernel (K4 and K2 above
-   128 x 128) and of K3's tiled kernel;
+   the three; the same report of the resident-group kernel (K4, K2 and K1
+   above 128 x 128, 12 instances: registers, spills, its dynamic shared
+   memory and the CTAs resident on an SM and on the card), of the strip
+   kernel (above 128 x 128 where the group kernel's slabs do not fit) and
+   of K3's tiled kernel;
 3. K4 (fused_extract_channels) against its plain PyTorch version on the
    card: 512 complex64 128x128 patches cut from 8 waterfalls of 1024 x
    1024, an odd N, a constant patch, real float32 input, NaN pixels (and
@@ -29,12 +32,19 @@ exit) if any phase fails:
    x 127) and input 8 bytes off 16-byte alignment (the last two take
    1-pixel groups): max abs diff <= 2e-5, NaN where the plain version has
    NaN and no inf (``extract_err``); time per call (CUDA events, see
-   ``cuda_ms``); then the strip kernel that takes patches above 128 x 128
-   on the same kinds of input: 32 x 256^2 and the 8 whole 1024^2
-   waterfalls, complex and real, NaN pixels and a patch of NaN only, a
-   constant patch, ragged 129 x 130 and 1000 x 1024, input 8 bytes off
-   16-byte alignment; its time and bound at (32, 256, 256) (phase 15's
-   step) and (128, 1024, 1024) (phase 14's generation batch);
+   ``cuda_ms``); then patches above 128 x 128 on the same kinds of input:
+   32 and 512 x 256^2 and the 8 whole 1024^2 waterfalls, complex and real,
+   NaN pixels and a patch of NaN only, a constant patch, ragged 129 x 130
+   and 1000 x 1024, input 8 bytes off 16-byte alignment, and one 2048^2
+   patch: the wrapper by the route ``extract_route`` gives the shape, and
+   both the resident-group kernel and the two-pass strip kernel launched
+   directly, each within 2e-5 of the plain version and all three equal
+   element for element; the kernels a call launches (torch.profiler, each
+   kernel counted over 8 calls: the group kernel once a call on the group
+   route, the strip route's 3 kernels once a call each); both kernels'
+   times and bounds at
+   (32, 256, 256) (phase 15's step) and (128, 1024, 1024) (phase 14's
+   generation batch);
 4. K5 (mad_flag_patches) at sigma 5 against its plain version, flags
    bit-equal: the 512 patches, whole 1024 x 1024 waterfalls, patches with
    NaNs, negative real input, and the cases that stress its radix select:
@@ -46,8 +56,8 @@ exit) if any phase fails:
    x 1024 waterfalls: IoU against the known RFI mask (> 0.9), K4
    launches, waterfalls/s; the card's logits against the same predictor on the CPU
    (TF32 off) on 8 patches; and the BatchNorm snapshot at patch_size=256
-   (K4's strip kernel), whose masks equal the same predictor's on the
-   plain extraction on >= 99.9% of the pixels;
+   (K4's resident-group kernel), whose masks equal the same predictor's on
+   the plain extraction on >= 99.9% of the pixels;
 6. the MAD path, flag_waterfalls(method="mad", sigma=5): IoU (> 0.5), K5
    launches, waterfalls/s;
 7. K2 (fused_extract_channel_planes), K1 (fused_gather_extract) and K3
@@ -62,18 +72,28 @@ exit) if any phase fails:
    (more than one list of its outputs): K1 and K2 within 2e-5 (NaN where
    the plain version has NaN), shapes equal, K3 bit-equal; time per call
    (K1's scan for its outputs inside the call) and bound; then the same
-   above 128 x 128 (K2 the strip kernel, K1 the strip K2 and K3's gather,
-   K3 32 x 32 squares): 32 x 256^2 and 8 x 1024^2, real, NaN, constant,
-   129 x 130 and 1000 x 1024 (K1, K2), misaligned, and their times at the
-   static selection of patch 256 (M=128 base patches, K=480);
+   above 128 x 128 (K2 and K1 on the resident-group kernel or, where its
+   slabs do not fit, the strip kernel and, for K1, the strip K2 and K3's
+   gather; K3 32 x 32 squares): 32 and 512 x 256^2, 8 x 1024^2, real, NaN,
+   constant, 129 x 130 and 1000 x 1024, misaligned, one 2048^2 patch,
+   each also on both kernels launched directly (the wrapper and both
+   within 2e-5, all three equal element for element), the kernels a call
+   launches (torch.profiler: each of the route's kernels once a call, K3's
+   gather only on K1's strip route), K2's group kernel on a real 2048^2
+   patch (512 slabs) on two streams at once, equal to a call alone, and both
+   routes' times at (32, 256, 256), at the static selections of patch 256
+   (M=128 base patches, K=480) and 1024 (M=8, K=30), and at 2048 (M=2,
+   K=7), where no slab fits;
 8. static prep, Preprocessor.create_dataset(static_num_patches=1920), on
    the 'auto' route (K1) and the 'planes' route (K2 + K3), and with MAD
    flags (K5), then on real input (the waterfalls' amplitudes) on both
    routes and on the materialised path (num_patches=1920, K4), each
    against use_kernels=False on the card: the same selection, labels
    bit-equal, images within 2e-5; and the 'auto' (K1) and 'planes' (K2 +
-   K3) routes at patch_size=256 (K=480), on the kernels for larger
-   patches;
+   K3) routes at patch_size=256 (K=480) and 1024 (K=30 of two 2048^2
+   waterfalls), on the resident-group kernel, and at patch_size=2048 (K=7
+   of one 2048 x 4096 waterfall), on the strip kernel (K1 as the strip K2
+   and K3);
 9. the training main path at full width: the port's generator (bench.py's
    event mix) -> static prep (K=1920, default route) -> UNet(32,
    norm="batch") in bfloat16 trained for 15 steps of 128 per iteration;
@@ -267,6 +287,7 @@ under build/ (the snapshot and checkpoints of phases 13 and 19, phase
 0.8 GB, deleted at the end of each phase).
 """
 
+import collections
 import concurrent.futures
 import copy
 import ctypes
@@ -460,6 +481,11 @@ VAL_1K_CONFIG = cut_config(_VAL_1K, PHASE14_CUTS["VAL_1K_CONFIG"])
 FIT_BATCH = 4  # the training CLI's default for --train_batches_dir
 LARGE = 256  # the side of the large patches of phases 3, 5, 7 and 8
 K_LARGE = K_STATIC * PATCH ** 2 // LARGE ** 2  # 480 of 256^2: the pixels of 1920 of 128^2
+K_WIDE = K_STATIC * PATCH ** 2 // SIDE ** 2  # 30 of 1024^2 (of the 32 virtual patches)
+# phases 7 and 8: patches of 2048^2, where no slab of the resident-group kernel
+# fits (the strip route): the 8 waterfalls tiled into one of 2048 x 4096, 7 of
+# its 8 virtual patches
+HUGE, K_HUGE = 2048, 7
 FLAG_BATCH_LARGE = 32  # the predictor's fixed batch at 256^2
 RAW_PATCH, RAW_BATCH = 256, 32  # phase 15: create_raw_patches' default, batch 32
 RAW_WARM_EPOCHS = 20  # phase 15: the warm epochs timed back to back
@@ -612,15 +638,17 @@ def kernel_report(lib, nvcc):
     the SASS of each; print how many clusters of 4 CTAs of K1's, K2's and
     K4's kernel fit on the card at 128 x 128 (cudaOccupancyMaxActiveClusters)
     and its dynamic shared memory, and fail if none fits for one of them or
-    if one of its 12 instances is missing, or one of the strip kernel's 16
-    (K4 and K2 above 128 x 128) or K3's tiled kernel;
+    if one of its 12 instances is missing, or one of the resident-group
+    kernel's 12 (K4, K2 and K1 above 128 x 128, with the CTAs it keeps
+    resident: fail if none), the strip kernel's 16 or K3's tiled kernel;
     fail if a 3xTF32 kernel (K6b's conv3x3_dw_kernel, K6a's and K7's
     conv3x3_mma_kernel) holds another count than hmma_expected's, or if
     K6a's four tiles (kChunkSums true) are missing."""
     text = (lib.path.parent / "nvcc.log").read_text()
     kernels = ("conv3x3_dw_kernel", "conv3x3_mma_kernel", "group_stats_kernel",
                "gn_relu_kernel", "sum_splits_kernel", "mad_flags_kernel",
-               "cluster_extract_kernel", "strip_extract_kernel", "plane_gather_tiled_kernel")
+               "cluster_extract_kernel", "group_extract_kernel", "strip_extract_kernel",
+               "plane_gather_tiled_kernel")
     tool = Path(nvcc).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib.path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -664,6 +692,17 @@ def kernel_report(lib, nvcc):
             "kernel is missing")
     log("  (strip_extract_kernel<complex, kind: 0 K2, 2 K4, pixels a group, pass 2>)")
     fit = (ctypes.c_int * 3)()
+    groups = [r for r in names if "group_extract_kernel" in r]
+    require(len(groups) == 12,
+            f"the resident-group kernel: {len(groups)} of 12 instances compiled")
+    log("  (group_extract_kernel<complex, kind: 0 K2, 1 K1, 2 K4, pixels a group>)")
+    for kind, name in ((1, "K1"), (0, "K2"), (2, "K4")):
+        for is_complex in (1, 0):
+            rc = lib.rfi_extract_groups_occupancy(kind, is_complex, fit)
+            log(f"  {name} above 128^2 ({'complex64' if is_complex else 'float32'}): "
+                f"resident-group kernel, {fit[0]} CTAs an SM at its {fit[2]} bytes of dynamic "
+                f"shared memory, {fit[1]} resident on the card (rc {rc})")
+            require(rc == 0 and fit[1] > 0, f"{name}: no CTA of the resident-group kernel fits")
     for kind, name in ((1, "K1"), (0, "K2"), (2, "K4")):
         for is_complex in (1, 0):
             rc = lib.rfi_channel_planes_occupancy(kind, is_complex, PATCH, PATCH, fit)
@@ -712,6 +751,136 @@ def extract_err(got, want, what):
         if bool((~nan).any()):
             worst = max(worst, float((a[~nan] - b[~nan]).abs().max()))
     return worst
+
+
+def differing(got, want):
+    """Elements that differ between two tuples of tensors (NaN equals NaN)."""
+    return sum(int((~((a == b) | (torch.isnan(a) & torch.isnan(b)))).sum())
+               for a, b in zip(got, want))
+
+
+def direct_kernel(kind, route, x, base_idx=None, pidx=None):
+    """``(call, outputs, rows)``: ``call()`` launches K4's ("K4"), K2's or
+    K1's kernel of ``route`` above 128 x 128 directly on ``x`` (no wrapper
+    counts it) into ``outputs``, allocated once: "groups" the resident-group
+    kernel at the ``rows`` ``group_rows`` gives the shape (``call`` None
+    where no slab fits), "strips" the two-pass strip kernel (K1: the strip
+    K2 into planes, then K3's gather)."""
+    from rfi_toolbox_tpu_torch.ops import fused_channels as F
+
+    n, h, w = x.shape
+    code = {"K4": F._K4, "K2": F._K2, "K1": F._K1}[kind]
+    plane_shapes = [(3, n, h, w), (n, h, w), (n, h, w)]
+    shapes = {"K4": [(n, h, w, 3)], "K2": plane_shapes,
+              "K1": [(0 if base_idx is None else base_idx.numel(), h, w)] * 3}[kind]
+    outs = tuple(torch.empty(sh, device=x.device) for sh in shapes)
+    idx = ()
+    if kind == "K1":
+        idx = (base_idx.to(torch.int32), pidx.to(torch.int32))
+    if route == "groups":
+        resident = F._resident(torch.cuda.current_device(), code, x.is_complex())
+        rows = F.group_rows(h, w, x.is_complex(), resident)
+        if not rows:
+            return None, outs, 0
+        return (lambda: F._extract_groups(code, x, rows, *outs, *idx)), outs, rows
+    if kind == "K4":
+        return (lambda: F._extract_strips(F._K4, x, *outs)), outs, 0
+    if kind == "K2":
+        return (lambda: F._extract_strips(F._K2, x, *outs)), outs, 0
+    planes = tuple(torch.empty(sh, device=x.device) for sh in plane_shapes)
+    variant = torch.zeros_like(idx[0])
+
+    def call():
+        F._extract_strips(F._K2, x, *planes)
+        F._gather_transform(planes, *idx, variant, outs)
+    return call, outs, 0
+
+
+def both_kernels(kind, x, base_idx=None, pidx=None):
+    """``(rows, group outputs, strip outputs)`` of K4 ("K4"), K2 or K1 on
+    ``x`` on both kernels (``direct_kernel``); the group outputs ``None``
+    where no slab fits."""
+    g_call, groups, rows = direct_kernel(kind, "groups", x, base_idx, pidx)
+    if g_call is None:
+        groups = None
+    else:
+        g_call()
+    s_call, strips, _ = direct_kernel(kind, "strips", x, base_idx, pidx)
+    s_call()
+    return rows, groups, strips
+
+
+def route_of(kind, x):
+    """The route and rows ``extract_route`` gives K4 ("K4"), K2 or K1 on
+    ``x``'s shape on this card."""
+    from rfi_toolbox_tpu_torch.ops import fused_channels as F
+
+    code = {"K4": F._K4, "K2": F._K2, "K1": F._K1}[kind]
+    return F.extract_route(code, *x.shape[1:], x.is_complex(),
+                           F._resident(torch.cuda.current_device(), code, x.is_complex()))
+
+
+def route_kernels(kind, route):
+    """The port's kernels (names before their template arguments) that a
+    call of K4 ("K4"), K2 or K1 launches once each on ``route`` above
+    128 x 128: the group route its one kernel; the strip route the key
+    init and the strip kernel's two passes, and K1 there K3's gather too."""
+    if route == "groups":
+        return ["group_extract_kernel"]
+    return (["init_keys_kernel", "strip_extract_kernel", "strip_extract_kernel"]
+            + (["plane_gather_tiled_kernel"] if kind == "K1" else []))
+
+
+def port_kernels(fn, want, calls=8, tries=4):
+    """``(ok, counts, traces)``: whether ``calls`` calls of ``fn`` launch
+    each of the port's kernels named in ``want`` (``route_kernels``) once
+    a call and no other of the port's kernels (PyTorch's own kernels and
+    memsets left out), by torch.profiler over the active step of its
+    schedule, after two warm-up steps. The profiler drops some kernels of a
+    trace, at its start and at times within it, and never adds any: so up
+    to ``tries`` traces are taken until one holds each kernel exactly
+    ``calls`` times, and a trace that holds another kernel of the port's,
+    or one more than ``calls`` times, fails at once. ``counts`` are the
+    last trace's (None where it saw no device event at all), ``traces``
+    the traces taken."""
+    counts = None
+    for trace in range(1, tries + 1):
+        schedule = torch.profiler.schedule(wait=0, warmup=2, active=1, repeat=1)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA],
+                                    schedule=schedule, acc_events=True) as prof:
+            for step in range(3):
+                for _ in range(calls if step == 2 else 1):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not names:
+            counts = None
+            continue
+        ours = [re.sub(r"^void |\(anonymous namespace\)::", "", n).split("(")[0]
+                for n in names
+                if any(k in n for k in ("extract_kernel", "init_keys_kernel", "plane_gather"))]
+        counts = dict(collections.Counter(ours))
+        by_name = collections.Counter(n.split("<")[0] for n in ours)
+        if (any(n not in want for n in by_name)
+                or any(c > calls for c in counts.values())
+                or len(counts) > len(want)):
+            return False, counts, trace
+        if (sorted(n.split("<")[0] for n in counts) == sorted(want)
+                and all(c == calls for c in counts.values())):
+            return True, counts, trace
+    return False, counts, tries
+
+
+def launched_text(counts, traces, calls=8):
+    """``port_kernels``'s counts as text."""
+    if counts is None:
+        return f"the profiler saw no device event ({traces} traces)"
+    return (f"{len(counts)} kernels of the port's a call (over {calls} calls: "
+            + ", ".join(f"{n} x{c}" for n, c in sorted(counts.items()))
+            + f"; trace {traces})")
 
 
 def make_waterfalls(rng):
@@ -1815,7 +1984,9 @@ def main():
     log(f"K4 at (512,128,128) c64: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms, "
         f"bound {k4_bound:.4f} ms ({k4_bound_by}), {k4_ms / k4_bound:.1f}x the bound")
 
-    # K4 above 128 x 128: the strip kernel
+    # K4 above 128 x 128: the resident-group kernel where its slabs fit, else
+    # the strip kernel (extract_route); every case also on both kernels
+    # launched directly
     p256 = P.patchify_batch(wf, LARGE).contiguous()  # (128, 256, 256)
     nan256 = p256[:8].clone()
     nan256[(torch.rand(nan256.shape, generator=g4) < 0.01).to(dev)] = complex(float("nan"), 0.0)
@@ -1823,8 +1994,10 @@ def main():
     shifted256 = torch.empty(8 * LARGE * LARGE + 1, dtype=torch.complex64, device=dev)
     shifted256 = shifted256[1:].view(8, LARGE, LARGE)
     shifted256.copy_(p256[8:16])
+    wide = torch.cat([torch.cat([wf[0], wf[1]], 1), torch.cat([wf[2], wf[3]], 1)], 0)[None]
     large_cases = {
         "32x256^2": p256[:32],
+        "512x256^2": p256.repeat(4, 1, 1),
         "8x1024^2": wf,
         "real 32x256^2": p256[:32].abs(),
         "real 8x1024^2": wf.abs(),
@@ -1834,29 +2007,63 @@ def main():
         "129x130": wf[:, :129, :130].contiguous(),
         "1000x1024": wf[:2, :1000].contiguous(),
         "8 B off 16 B 256^2": shifted256,
+        "1x2048^2": wide.contiguous(),  # 33.5 MB of complex64: the strip route
     }
-    k4_large_err = {}
+    k4_group_err, k4_strip_err, k4_diff, cells = {}, {}, {}, []
+    k4_wrap_err = {"groups": {}, "strips": {}}  # the wrapper's, by its route
+    k4_wrap_diff = {}  # the wrapper's elements off the kernel its route names
     for name, x in large_cases.items():
         got, want = fused_extract_channels(x), fused_extract_channels_plain(x)
+        rows, groups, strips = both_kernels("K4", x)
         torch.cuda.synchronize()
-        k4_large_err[name] = extract_err((got,), (want,), f"K4 {name}")
-    del got, want
-    log("K4 above 128^2 (strip kernel) max|kernel-plain|: " + ", ".join(
-        f"{k} {v:.2e}" for k, v in k4_large_err.items()) + f" (tol {K4_TOL:g})")
-    require(max(k4_large_err.values()) <= K4_TOL,
-            "K4's strip kernel disagrees with its plain version")
+        route = route_of("K4", x)[0]
+        err = k4_wrap_err[route][name] = extract_err((got,), (want,), f"K4 {name}")
+        k4_wrap_diff[name] = differing((got,), groups if route == "groups" else strips)
+        k4_strip_err[name] = extract_err(strips, (want,), f"K4 {name}, strip kernel")
+        if groups is not None:
+            k4_group_err[name] = extract_err(groups, (want,), f"K4 {name}, group kernel")
+            k4_diff[name] = differing(groups, strips)
+        cells.append(f"{name} [{route}] {err:.2e} ({k4_wrap_diff[name]} differing from the "
+                     f"{route} kernel's), group kernel (rows {rows}) "
+                     + (f"{k4_group_err[name]:.2e}, {k4_diff[name]} differing from the strip "
+                        f"kernel's" if groups is not None else "none fits")
+                     + f", strip kernel {k4_strip_err[name]:.2e}")
+    del got, want, groups, strips
+    log("K4 above 128^2, max|kernel-plain| of the wrapper by its route (and the elements it "
+        "differs in from that kernel launched directly), of each kernel launched directly, "
+        f"and the elements the two differ in: {'; '.join(cells)} (tol {K4_TOL:g}; "
+        "differing must be 0)")
+    require(max([*k4_wrap_err["groups"].values(), *k4_wrap_err["strips"].values(),
+                 *k4_group_err.values(), *k4_strip_err.values()]) <= K4_TOL,
+            "K4 above 128^2 disagrees with its plain version")
+    require(not any(k4_wrap_diff.values()),
+            "K4 above 128^2 differs from the kernel its route names")
+    require(not any(k4_diff.values()), "K4's group kernel differs from its strip kernel")
+    require(route_of("K4", large_cases["1x2048^2"])[0] == "strips"
+            and route_of("K4", p256[:32])[0] == "groups",
+            "K4: 2048^2 does not take the strip route or 256^2 the group route")
     k4_large = {}
     big = wf.repeat(16, 1, 1)  # (128, 1024, 1024): phase 14's generation batch
     for shape, x, calls in (("(32,256,256)", p256[:32], 50), ("(128,1024,1024)", big, 10)):
         n_px = x.numel()
         b_ms, b_by = bound(n_px * (8 + 12), n_px * K4_OPS_PER_PIXEL)
-        k4_large[shape] = (cuda_ms(lambda: fused_extract_channels(x), calls=calls),
-                           cuda_ms(lambda: fused_extract_channels_plain(x), calls=3, windows=3),
-                           b_ms, b_by)
-        k_ms, p_ms, _, _ = k4_large[shape]
-        log(f"K4 (strip kernel) at {shape} c64: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), {k_ms / b_ms:.1f}x the bound")
-    del big
+        route = route_of("K4", x)
+        g_call, _, rows = direct_kernel("K4", "groups", x)
+        s_call, _, _ = direct_kernel("K4", "strips", x)
+        k_ms = cuda_ms(lambda: fused_extract_channels(x), calls=calls)
+        group_ms = cuda_ms(g_call, calls=calls)
+        strip_ms = cuda_ms(s_call, calls=calls)
+        p_ms = cuda_ms(lambda: fused_extract_channels_plain(x), calls=3, windows=3)
+        once, counts, traces = port_kernels(lambda: fused_extract_channels(x),
+                                            route_kernels("K4", route[0]))
+        k4_large[shape] = (k_ms, p_ms, b_ms, b_by)
+        log(f"K4 at {shape} c64: route {route}, wrapper {k_ms:.4f} ms ("
+            + launched_text(counts, traces)
+            + f"); resident-group kernel (rows {rows}) {group_ms:.4f} ms, strip kernel "
+            f"{strip_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), wrapper "
+            f"{k_ms / b_ms:.1f}x the bound")
+        require(once, f"K4 at {shape}: not the {route[0]} route's kernels once a call")
+    del big, g_call, s_call
     phases["K4"] = time.perf_counter() - t
 
     # -- K5 -----------------------------------------------------------------
@@ -2076,16 +2283,31 @@ def main():
             f"plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
             f"{k_ms / bound_ms:.1f}x the bound")
 
-    # K2, K1, K3 above 128 x 128: the strip kernel, the strip K2 and K3's
-    # gather, K3's 32 x 32 squares; at the static selection of patch 256
-    prep256 = make_static_prep_fn(LARGE, K_LARGE, return_patches=False)
-    b256 = prep256.base(twf.reshape(-1, SIDE, SIDE), tmask.reshape(-1, SIDE, SIDE))
-    keep256 = P.static_select_from_has(b256.has, K_LARGE,
-                                       torch.Generator(device=dev).manual_seed(0))
-    bidx256, var256, pidx256 = prep256.indices(b256, keep256)
-    base256 = b256.base.contiguous()  # (128, 256, 256) complex64
+    # K2, K1, K3 above 128 x 128: K2 and K1 on the resident-group kernel where
+    # its slabs fit, else the strip kernel (K1: the strip K2 and K3's gather),
+    # every case also on both kernels launched directly; K3's 32 x 32
+    # squares; at the static selections of patch 256 and 1024
+    def tiled(x):
+        """The 8 waterfalls of 1024^2 as 2 of 2048^2, 4 tiled 2 x 2 in each."""
+        x = x.reshape(2, 2, 2, SIDE, SIDE)
+        return torch.cat([torch.cat([x[:, 0, 0], x[:, 0, 1]], -1),
+                          torch.cat([x[:, 1, 0], x[:, 1, 1]], -1)], -2).contiguous()
+
+    twf2, tmask2 = tiled(twf), tiled(tmask)  # (2, 2048, 2048)
+    twf4, tmask4 = (torch.cat([x[0], x[1]], -1)[None] for x in (twf2, tmask2))  # 2048 x 4096
+
+    def selection(patch, k, wfs, masks):
+        prep = make_static_prep_fn(patch, k, return_patches=False)
+        sel = prep.base(wfs, masks)
+        keep = P.static_select_from_has(sel.has, k, torch.Generator(device=dev).manual_seed(0))
+        return (sel.base.contiguous(), *prep.indices(sel, keep))
+
+    base256, bidx256, var256, pidx256 = selection(
+        LARGE, K_LARGE, twf.reshape(-1, SIDE, SIDE), tmask.reshape(-1, SIDE, SIDE))
     m256 = base256.shape[0]
-    wf8 = twf.reshape(-1, SIDE, SIDE).contiguous()  # 8 whole 1024^2 base patches
+    # the 8 waterfalls of 1024^2 as base patches of the 2048^2 ones
+    wf8, bidx1024, _, pidx1024 = selection(SIDE, K_WIDE, twf2, tmask2)
+    wf2, bidx2048, _, pidx2048 = selection(HUGE, K_HUGE, twf4, tmask4)  # (2, 2048, 2048)
     nan_b256 = base256[:16].clone()
     nan_b256[(torch.rand(nan_b256.shape, generator=g) < 0.01).to(dev)] = complex(float("nan"), 0.0)
     nan_b256[5] = complex(float("nan"), 0.0)
@@ -2094,34 +2316,99 @@ def main():
     shifted_b256.copy_(base256[16:32])
     ragged_large = {"129x130": wf8[:, :129, :130].contiguous(),
                     "1000x1024": wf8[:2, :1000].contiguous()}
+    wide8 = twf2[:1]  # one 2048^2 patch
+    base512 = base256.repeat(4, 1, 1)
 
     def some(m, k=37):
         """k random (base_idx, pidx) over m base patches."""
         return (torch.randint(0, m, (k,), generator=g).to(dev),
                 torch.randint(0, 3, (k,), generator=g).to(dev))
 
-    k2_large_err = {}
-    for name, x in {f"M={m256} 256^2": base256, "8x1024^2": wf8, "real 256^2": base256.abs(),
-                    "NaN 256^2": nan_b256,
-                    "constant 256^2": const.new_full((3, LARGE, LARGE), 2 + 1j),
-                    "8 B off 16 B": shifted_b256, **ragged_large}.items():
-        got = ops.fused_extract_channel_planes(x)
-        want = ops.fused_extract_channel_planes_plain(x)
-        torch.cuda.synchronize()
-        k2_large_err[name] = extract_err(got, want, f"K2 {name}")
-    k1_large_cases = {
-        f"K={K_LARGE} 256^2": (base256, bidx256, pidx256),
-        "8x1024^2": (wf8, *some(8, 19)),
-        "real 256^2": (base256.abs(), bidx256, pidx256),
-        "NaN 256^2": (nan_b256, *some(16)),
-        "8 B off 16 B": (shifted_b256, *some(16)),
-        **{name: (x, *some(x.shape[0], 9)) for name, x in ragged_large.items()},
+    large_cases = {
+        "K2": {f"M={m256} 256^2": (base256,), "512x256^2": (base512,), "8x1024^2": (wf8,),
+               "real 256^2": (base256.abs(),), "NaN 256^2": (nan_b256,),
+               "constant 256^2": (const.new_full((3, LARGE, LARGE), 2 + 1j),),
+               "8 B off 16 B": (shifted_b256,), "1x2048^2": (wide8,),
+               **{k: (v,) for k, v in ragged_large.items()}},
+        "K1": {f"K={K_LARGE} 256^2": (base256, bidx256, pidx256),
+               "512x256^2": (base512, *some(512, 1920)),
+               f"8x1024^2 K={K_WIDE}": (wf8, bidx1024, pidx1024),
+               "real 256^2": (base256.abs(), bidx256, pidx256),
+               "NaN 256^2": (nan_b256, *some(16)),
+               "constant 256^2": (const.new_full((3, LARGE, LARGE), 2 + 1j),
+                                  torch.tensor([0, 2, 0, 2], device=dev),
+                                  torch.tensor([0, 1, 2, 0], device=dev)),
+               "repeated pairs, bases unselected": (
+                   base256, torch.tensor([7, 7, 7, 3, 7, 3, 7], device=dev),
+                   torch.tensor([2, 2, 2, 0, 2, 1, 2], device=dev)),
+               "one base 150 times": (base256, many,
+                                      torch.randint(0, 3, many.shape, generator=g).to(dev)),
+               "8 B off 16 B": (shifted_b256, *some(16)),
+               "1x2048^2": (wide8, *some(1, 3)),
+               **{name: (x, *some(x.shape[0], 9)) for name, x in ragged_large.items()}},
     }
-    k1_large_err = {}
-    for name, args in k1_large_cases.items():
-        got, want = ops.fused_gather_extract(*args), ops.fused_gather_extract_plain(*args)
-        torch.cuda.synchronize()
-        k1_large_err[name] = extract_err(got, want, f"K1 {name}")
+    wrappers = {"K2": (ops.fused_extract_channel_planes, ops.fused_extract_channel_planes_plain),
+                "K1": (ops.fused_gather_extract, ops.fused_gather_extract_plain)}
+    group_err = {"K2": {}, "K1": {}}
+    strip_err = {"K2": {}, "K1": {}}
+    large_diff = {"K2": {}, "K1": {}}
+    # the wrapper's errors by its route, and its elements off the kernel its
+    # route names
+    wrap_err = {op: {"groups": {}, "strips": {}} for op in ("K2", "K1")}
+    wrap_diff = {"K2": {}, "K1": {}}
+    for op, cases in large_cases.items():
+        fn, plain = wrappers[op]
+        cells = []
+        for name, args in cases.items():
+            got, want = fn(*args), plain(*args)
+            rows, groups, strips = both_kernels(op, *args)
+            torch.cuda.synchronize()
+            route = route_of(op, args[0])[0]
+            err = wrap_err[op][route][name] = extract_err(got, want, f"{op} {name}")
+            wrap_diff[op][name] = differing(got, groups if route == "groups" else strips)
+            strip_err[op][name] = extract_err(strips, want, f"{op} {name}, strip kernel")
+            if groups is not None:
+                group_err[op][name] = extract_err(groups, want, f"{op} {name}, group kernel")
+                large_diff[op][name] = differing(groups, strips)
+            cells.append(f"{name} [{route}] {err:.2e} ({wrap_diff[op][name]} differing from "
+                         f"the {route} kernel's), group kernel (rows {rows}) "
+                         + (f"{group_err[op][name]:.2e}, {large_diff[op][name]} "
+                            "differing from the strip kernel's"
+                            if groups is not None else "none fits")
+                         + f", strip kernel {strip_err[op][name]:.2e}")
+        log(f"{op} above 128^2, max|kernel-plain| of the wrapper by its route (and the "
+            "elements it differs in from that kernel launched directly), of each kernel "
+            f"launched directly, and the elements the two differ in: {'; '.join(cells)} (tol "
+            f"{EXTRACT_TOL:g}; differing must be 0)")
+        require(max([*wrap_err[op]["groups"].values(), *wrap_err[op]["strips"].values(),
+                     *group_err[op].values(), *strip_err[op].values()]) <= EXTRACT_TOL,
+                f"{op} above 128^2 disagrees with its plain version")
+        require(not any(wrap_diff[op].values()),
+                f"{op} above 128^2 differs from the kernel its route names")
+        require(not any(large_diff[op].values()),
+                f"{op}'s group kernel differs from its strip kernel")
+        require(route_of(op, wide8)[0] == "strips" and route_of(op, base256)[0] == "groups",
+                f"{op}: 2048^2 does not take the strip route or 256^2 the group route")
+    del got, want, groups, strips, base512
+    # the group kernel on two streams at once: its grid is launched
+    # cooperatively, so it never starts part-resident beside another grid
+    # whose slabs it would wait behind (K2 on a real 2048^2 patch: 512 slabs
+    # of 4 rows, nearly the whole resident grid)
+    real2048 = wide8.abs().contiguous()
+    require(route_of("K2", real2048)[0] == "groups", "K2 on real 2048^2: not the group route")
+    alone = ops.fused_extract_channel_planes(real2048)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    together = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            together += [ops.fused_extract_channel_planes(real2048) for _ in range(4)]
+    torch.cuda.synchronize()
+    stream_diff = sum(differing(o, alone) for o in together)
+    log(f"K2 on a real 2048^2 patch (group route, 512 slabs), 4 calls on each of 2 streams at "
+        f"once: {stream_diff} elements differing from a call alone (must be 0)")
+    require(stream_diff == 0, "K2's group kernel on two streams differs from a call alone")
+    del real2048, alone, together
     planes256 = ops.fused_extract_channel_planes(base256)
     planes1024 = ops.fused_extract_channel_planes(wf8)
     every_variant = torch.arange(19, device=dev) % 4
@@ -2134,45 +2421,71 @@ def main():
         torch.cuda.synchronize()
         k3_large_diff[name] = sum(int((a != b).sum()) for a, b in zip(got, want))
     del got, want, planes1024
-    log("above 128^2: K2 max|kernel-plain|: " + ", ".join(
-        f"{k} {v:.2e}" for k, v in k2_large_err.items()) + "; K1: " + ", ".join(
-        f"{k} {v:.2e}" for k, v in k1_large_err.items()) + f" (tol {EXTRACT_TOL:g}); K3 "
-        "values differing: " + ", ".join(f"{k} {v}" for k, v in k3_large_diff.items())
-        + " (must be 0)")
-    require(max(k2_large_err.values()) <= EXTRACT_TOL, "K2 above 128^2 disagrees")
-    require(max(k1_large_err.values()) <= EXTRACT_TOL, "K1 above 128^2 disagrees")
+    log("K3 above 128 values differing: "
+        + ", ".join(f"{k} {v}" for k, v in k3_large_diff.items()) + " (must be 0)")
     require(not any(k3_large_diff.values()), "K3 above 128 is not bit-equal")
 
     px256 = LARGE * LARGE
     distinct256 = int(torch.unique(bidx256).numel())
     distinct_grad256 = int(torch.unique(pidx256 * m256 + bidx256).numel())
+    distinct1024 = int(torch.unique(bidx1024).numel())
     p32 = base256[:32]
+    px1024 = SIDE * SIDE
+    px2048 = HUGE * HUGE
+    distinct2048 = int(torch.unique(bidx2048).numel())
+    n_wide = wf8.shape[0]
+    # name -> (kernel, arguments, bound); K3's bound: the selected planes read,
+    # the outputs and indices moved
     large_kernels = {
-        "K2 (32,256,256)": (lambda: ops.fused_extract_channel_planes(p32),
-                            lambda: ops.fused_extract_channel_planes_plain(p32),
-                            bound(32 * px256 * (8 + 5 * 4), 32 * px256 * PLANE_OPS_PER_PIXEL)),
-        "K2": (lambda: ops.fused_extract_channel_planes(base256),
-               lambda: ops.fused_extract_channel_planes_plain(base256),
-               bound(m256 * px256 * (8 + 5 * 4), m256 * px256 * PLANE_OPS_PER_PIXEL)),
-        "K1": (lambda: ops.fused_gather_extract(base256, bidx256, pidx256),
-               lambda: ops.fused_gather_extract_plain(base256, bidx256, pidx256),
+        "K2 (32,256,256)": ("K2", (p32,), bound(32 * px256 * (8 + 5 * 4),
+                                                32 * px256 * PLANE_OPS_PER_PIXEL)),
+        "K2": ("K2", (base256,), bound(m256 * px256 * (8 + 5 * 4),
+                                       m256 * px256 * PLANE_OPS_PER_PIXEL)),
+        "K1": ("K1", (base256, bidx256, pidx256),
                bound(distinct256 * px256 * 8 + K_LARGE * (2 * 4 + 3 * 4 * px256),
                      distinct256 * px256 * PLANE_OPS_PER_PIXEL)),
-        "K3": (lambda: ops.fused_plane_gather_transform(planes256, bidx256, pidx256, var256),
-               lambda: ops.fused_plane_gather_transform_plain(planes256, bidx256, pidx256,
-                                                              var256),
+        "K3": ("K3", (planes256, bidx256, pidx256, var256),
                bound((distinct_grad256 + 2 * distinct256) * px256 * 4
                      + K_LARGE * (3 * 4 + 3 * 4 * px256), 0)),
+        "K2 (8,1024,1024)": ("K2", (wf8,), bound(n_wide * px1024 * (8 + 5 * 4),
+                                                 n_wide * px1024 * PLANE_OPS_PER_PIXEL)),
+        "K1 (8,1024,1024)": ("K1", (wf8, bidx1024, pidx1024),
+                             bound(distinct1024 * px1024 * 8
+                                   + K_WIDE * (2 * 4 + 3 * 4 * px1024),
+                                   distinct1024 * px1024 * PLANE_OPS_PER_PIXEL)),
+        "K2 (2,2048,2048)": ("K2", (wf2,), bound(2 * px2048 * (8 + 5 * 4),
+                                                 2 * px2048 * PLANE_OPS_PER_PIXEL)),
+        "K1 (2,2048,2048)": ("K1", (wf2, bidx2048, pidx2048),
+                             bound(distinct2048 * px2048 * 8
+                                   + K_HUGE * (2 * 4 + 3 * 4 * px2048),
+                                   distinct2048 * px2048 * PLANE_OPS_PER_PIXEL)),
     }
-    large_ms = {}
-    for name, (kernel, plain, (bound_ms, bound_by)) in large_kernels.items():
-        large_ms[name] = (cuda_ms(kernel, calls=20, windows=3),
-                          cuda_ms(plain, calls=5, windows=3), bound_ms, bound_by)
+    large_ms, other_ms = {}, {}
+    for name, (op, args, (bound_ms, bound_by)) in large_kernels.items():
+        if op == "K3":
+            fn = ops.fused_plane_gather_transform
+            plain = ops.fused_plane_gather_transform_plain
+        else:
+            fn, plain = wrappers[op]
+        large_ms[name] = (cuda_ms(lambda: fn(*args), calls=20, windows=3),
+                          cuda_ms(lambda: plain(*args), calls=5, windows=3), bound_ms, bound_by)
         k_ms, p_ms, _, _ = large_ms[name]
         where = name.split(" ", 1)[1] if " " in name else f"M={m256}, K={K_LARGE}, 256^2"
-        log(f"{name.split()[0]} above 128^2 at {where}: kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"{k_ms / bound_ms:.1f}x the bound")
+        line = (f"{name.split()[0]} above 128^2 at {where}: wrapper {k_ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                f"{k_ms / bound_ms:.1f}x the bound")
+        if op != "K3":
+            route = route_of(op, args[0])
+            other = "strips" if route[0] == "groups" else "groups"
+            call, _, rows = direct_kernel(op, other, *args)
+            other_ms[name] = cuda_ms(call, calls=20, windows=3) if call else None
+            once, counts, traces = port_kernels(lambda: fn(*args), route_kernels(op, route[0]))
+            line += (f"; route {route}, {launched_text(counts, traces)}; the {other} route "
+                     "launched directly "
+                     + (f"{other_ms[name]:.4f} ms" + (f" (rows {rows})" if rows else "")
+                        if call else "fits no slab"))
+            require(once, f"{name}: not the {route[0]} route's kernels once a call")
+        log(line)
     phases["K1-K3"] = time.perf_counter() - t
 
     # -- static prep through create_dataset ------------------------------------
@@ -2205,7 +2518,17 @@ def main():
               "auto 256": dict(extract="auto", flags=tmask, patch=LARGE,
                                size=dict(static_num_patches=K_LARGE)),
               "planes 256": dict(extract="planes", flags=tmask, patch=LARGE,
-                                 size=dict(static_num_patches=K_LARGE))}
+                                 size=dict(static_num_patches=K_LARGE)),
+              "auto 1024": dict(extract="auto", flags=tmask2[:, None], data=twf2[:, None],
+                                patch=SIDE, size=dict(static_num_patches=K_WIDE)),
+              "planes 1024": dict(extract="planes", flags=tmask2[:, None],
+                                  data=twf2[:, None], patch=SIDE,
+                                  size=dict(static_num_patches=K_WIDE)),
+              "auto 2048": dict(extract="auto", flags=tmask4[:, None], data=twf4[:, None],
+                                patch=HUGE, size=dict(static_num_patches=K_HUGE)),
+              "planes 2048": dict(extract="planes", flags=tmask4[:, None],
+                                  data=twf4[:, None], patch=HUGE,
+                                  size=dict(static_num_patches=K_HUGE))}
     for route, cfg in routes.items():
         def run(use_kernels):
             pre = Preprocessor(cfg.get("data", twf), flags=cfg["flags"])
@@ -2249,6 +2572,12 @@ def main():
     require(prep_launches["auto 256"]["K1"] == 1, "patch 256: 'auto' did not launch K1")
     require(prep_launches["planes 256"]["K2"] == 1 and prep_launches["planes 256"]["K3"] == 1,
             "patch 256: 'planes' did not launch K2 and K3")
+    for side in (1024, 2048):
+        require(prep_launches[f"auto {side}"]["K1"] == 1,
+                f"patch {side}: 'auto' did not launch K1")
+        require(prep_launches[f"planes {side}"]["K2"] == 1
+                and prep_launches[f"planes {side}"]["K3"] == 1,
+                f"patch {side}: 'planes' did not launch K2 and K3")
     phases["static prep"] = time.perf_counter() - t
 
     # -- the training main path ----------------------------------------------------
@@ -3381,22 +3710,32 @@ def main():
              "launches": launches, "max_abs_err": err, "ms": k_ms,
              "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
              "library_ms": None})
-    strips = "rfi_toolbox_tpu_torch/ops/csrc/extract_strips.cu"
-    k4_large_ms, k4_large_plain, k4_large_bound, k4_large_by = k4_large["(128,1024,1024)"]
+    csrc = "rfi_toolbox_tpu_torch/ops/csrc/"
+    groups_src, strips_src = csrc + "extract_groups.cu", csrc + "extract_strips.cu"
     for name, src, line, err, launches, (k_ms, p_ms, bound_ms, bound_by) in (
-            ("fused_gather_extract (above 128x128: strip K2 + K3's gather)",
-             f"{strips} + rfi_toolbox_tpu_torch/ops/csrc/plane_gather.cu", 340,
-             max(k1_large_err.values()), prep_launches["auto 256"]["K1"], large_ms["K1"]),
-            ("fused_extract_channel_planes (above 128x128: strip kernel)", strips, 195,
-             max(k2_large_err.values()), prep_launches["planes 256"]["K2"], large_ms["K2"]),
+            ("fused_gather_extract (above 128x128: resident-group kernel)", groups_src, 340,
+             max(wrap_err["K1"]["groups"].values()),
+             prep_launches["auto 256"]["K1"] + prep_launches["auto 1024"]["K1"], large_ms["K1"]),
+            ("fused_gather_extract (above 128x128 where no slab fits: strip K2 + K3's gather)",
+             f"{strips_src} + {csrc}plane_gather.cu", 340, max(wrap_err["K1"]["strips"].values()),
+             prep_launches["auto 2048"]["K1"], large_ms["K1 (2,2048,2048)"]),
+            ("fused_extract_channel_planes (above 128x128: resident-group kernel)", groups_src,
+             195, max(wrap_err["K2"]["groups"].values()),
+             prep_launches["planes 256"]["K2"] + prep_launches["planes 1024"]["K2"],
+             large_ms["K2"]),
+            ("fused_extract_channel_planes (above 128x128 where no slab fits: strip kernel)",
+             strips_src, 195, max(wrap_err["K2"]["strips"].values()),
+             prep_launches["planes 2048"]["K2"], large_ms["K2 (2,2048,2048)"]),
             ("fused_plane_gather_transform (above 128: 32x32 squares)",
-             "rfi_toolbox_tpu_torch/ops/csrc/plane_gather.cu", 414,
-             float(max(k3_large_diff.values())), prep_launches["planes 256"]["K3"],
+             csrc + "plane_gather.cu", 414, float(max(k3_large_diff.values())),
+             sum(prep_launches[f"planes {side}"]["K3"] for side in (256, 1024, 2048)),
              large_ms["K3"]),
-            ("fused_extract_channels (above 128x128: strip kernel)", strips, 455,
-             max(k4_large_err.values()),
-             file_path_launches + raw_launches + k4_large_flag_launches,
-             (k4_large_ms, k4_large_plain, k4_large_bound, k4_large_by))):
+            ("fused_extract_channels (above 128x128: resident-group kernel)", groups_src, 455,
+             max(k4_wrap_err["groups"].values()), raw_launches + k4_large_flag_launches,
+             k4_large["(32,256,256)"]),
+            ("fused_extract_channels (above 128x128 where no slab fits: strip kernel)",
+             strips_src, 455, max(k4_wrap_err["strips"].values()), file_path_launches,
+             k4_large["(128,1024,1024)"])):
         static_json.append(
             {"name": name, "route": "cuda", "source": src,
              "replaces": f"rfi_toolbox_tpu/ops/fused_channels.py:{line}",

@@ -5,12 +5,14 @@ launches its kernel for a CUDA tensor; the kernels are built by
 :mod:`._lib` on first launch.
 
 - K1 ``fused_gather_extract`` (csrc/channel_planes.cu; above 128 x 128
+  csrc/extract_groups.cu, or where its slabs do not fit
   csrc/extract_strips.cu and csrc/plane_gather.cu)
 - K2 ``fused_extract_channel_planes`` (csrc/channel_planes.cu; above
-  128 x 128 csrc/extract_strips.cu)
+  128 x 128 csrc/extract_groups.cu or csrc/extract_strips.cu)
 - K3 ``fused_plane_gather_transform`` (csrc/plane_gather.cu)
 - K4 ``fused_extract_channels`` (csrc/channel_planes.cu; above 128 x 128
-  csrc/extract_strips.cu)
+  csrc/extract_groups.cu or csrc/extract_strips.cu, by
+  ``fused_channels.extract_route``)
 - K5 ``mad_flag_patches`` (csrc/mad_flags.cu)
 - K6a ``conv3x3_call`` (csrc/conv3x3.cu, csrc/conv3x3_mma.cuh), behind
   the differentiable ``conv3x3_bias_relu`` and ``conv3x3``, on the tensor

@@ -54,6 +54,11 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # kind (0 K2, 2 K4), in, out, amp, phase, keys, n, h, w, is_complex, stream
     "rfi_extract_strips": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # kind (0 K2, 1 K1, 2 K4), in, base_idx, pidx, out, amp, phase, scratch,
+    # n, k, h, w, rows, is_complex, stream
+    "rfi_extract_groups": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # kind, is_complex, out: CTAs an SM, CTAs on the card, shared bytes a CTA
+    "rfi_extract_groups_occupancy": (_I, _I, _PI),
     # x, w, b (or None), y, n, h, w, ci, co, relu, stream
     "rfi_conv3x3": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # n, h, w, ci, co, out: splits

@@ -11,14 +11,29 @@ Counterparts of ``rfi_toolbox_tpu/ops/fused_channels.py``:
 - K3 :func:`fused_plane_gather_transform` (``csrc/plane_gather.cu``): the
   plane gather with the variant's flip/transpose.
 
-Each takes patches of any H x W, by shape: up to ``CLUSTER_MAX_PIXELS``
-(128 x 128) pixels K4, K2 and K1 run the cluster kernel
-(``csrc/channel_planes.cu``: a patch split across a cluster of 4 CTAs),
-larger patches the strip kernel (``csrc/extract_strips.cu``: two
-launches over 16 x 128 tiles, a patch's min and max combined by atomics),
-K1 as the strip K2 into a scratch of planes, then K3's gather. K3 takes
-square tiles up to ``GATHER_MAX_SIDE`` (128) in one block each, larger
-ones in 32 x 32 squares.
+Each takes patches of any H x W; :func:`extract_route` picks K4's, K2's
+and K1's kernel by the shape alone:
+
+- up to ``CLUSTER_MAX_PIXELS`` (128 x 128) pixels the cluster kernel
+  (``csrc/channel_planes.cu``: a patch split across a cluster of 4 CTAs);
+- larger patches whose slabs fit the resident grid the resident-group
+  kernel (``csrc/extract_groups.cu``: one launch; a patch cut into G slabs
+  of whole rows, each held in one CTA's shared memory, ``GROUP_SMEM_BYTES``
+  with its two halo rows, while all G are held at once (a cooperative
+  launch, so other streams' kernels cannot keep part of the grid out), so
+  G may not exceed the CTAs resident on the card; the input read once,
+  every output written once, K1 straight into its outputs), where a slab
+  holds the kind's ``GROUP_MIN_ROWS`` rows: for K4 8 (complex patches up
+  to 691 wide, real ones up to 1382 wide), for K2 and K1 1 (with 4 x 132
+  CTAs resident, complex 1024 x 1024 patches at 4 rows a slab; not
+  2048 x 2048);
+- the rest (K4 on complex 1024 x 1024 patches among them) the two-pass
+  strip kernel (``csrc/extract_strips.cu``: three launches over 16 x 128
+  tiles, a patch's min and max combined by atomics), K1 as the strip K2
+  into a scratch of planes, then K3's gather.
+
+K3 takes square tiles up to ``GATHER_MAX_SIDE`` (128) in one block each,
+larger ones in 32 x 32 squares.
 
 Each wrapper runs its plain PyTorch version (``*_plain``) for a tensor on
 the CPU, and for a CUDA tensor launches its kernel or raises; nothing
@@ -29,6 +44,9 @@ synchronisation. Torch models of the kernels' passes, which hold their
 arithmetic against the plain versions on the CPU, live with the tests
 (``tests/torch_kernel_models.py``).
 """
+
+import ctypes
+import functools
 
 import torch
 
@@ -44,17 +62,86 @@ __all__ = [
     "fused_gather_extract_plain",
     "fused_plane_gather_transform",
     "fused_plane_gather_transform_plain",
+    "extract_route",
+    "group_rows",
     "CLUSTER_MAX_PIXELS",
     "GATHER_MAX_SIDE",
+    "GROUP_SMEM_BYTES",
 ]
 
-# patches up to this many pixels take the cluster kernel, larger ones the
-# strip kernel (kMaxPixels in csrc/channel_planes.cu)
+# patches up to this many pixels take the cluster kernel (kMaxPixels in
+# csrc/channel_planes.cu)
 CLUSTER_MAX_PIXELS = 128 * 128
 # K3's square tiles up to this side take one block each, others 32 x 32
 # squares (kMaxSide in csrc/plane_gather.cu)
 GATHER_MAX_SIDE = 128
-_K2, _K4 = 0, 2  # the strip kernel's kinds (kK2, kK4 in csrc/extract_strips.cu)
+# the shared memory of a slab of the resident-group kernel with its two halo
+# rows, at most (kSmemBudget in csrc/extract_groups.cu)
+GROUP_SMEM_BYTES = 54 * 1024
+# the rows of a slab where the shape allows (fewer where its shared memory
+# holds fewer, more where a patch's slabs would outnumber the resident CTAs)
+GROUP_ROWS = 16
+# the kernels' kinds (kK2, kK1, kK4 in csrc/channel_planes.cu,
+# extract_groups.cu and extract_strips.cu)
+_K2, _K1, _K4 = 0, 1, 2
+# the fewest rows a slab of the resident-group kernel may have, by kind. K4
+# writes all of its output after the wait for the patch's other slabs, and at
+# 4 rows a slab (1024-wide complex patches) the halo rows converted again
+# cost more than the strip kernel's second read: 2.57 against 2.05 ms at
+# (128, 1024, 1024) on the H100; K2 (0.188 against 0.200 ms at (8, 1024,
+# 1024)) and K1 (0.299 against the strip K2 and K3's 0.577) gain at any
+# height (PERF.md)
+GROUP_MIN_ROWS = {_K4: 8, _K2: 1, _K1: 1}
+
+
+def group_rows(h, w, is_complex, resident):
+    """The rows of a slab of the resident-group kernel for patches of ``h``
+    x ``w``, or 0 where none fits.
+
+    ``resident`` is the count of that kernel's CTAs the card holds at once
+    (``rfi_extract_groups_occupancy``). The kernel holds all G = ceil(h /
+    rows) slabs of a patch at once, so ``rows`` must keep G <= ``resident``
+    and a slab with its two halo rows within ``GROUP_SMEM_BYTES``. Of those,
+    the nearest to ``GROUP_ROWS``, evened out over the patch's G slabs.
+    """
+    most = GROUP_SMEM_BYTES // (w * (8 if is_complex else 4)) - 2
+    least = -(-h // resident)
+    if most < max(least, 1):
+        return 0
+    rows = min(most, max(least, GROUP_ROWS))
+    return -(-h // -(-h // rows))
+
+
+def extract_route(kind, h, w, is_complex, resident):
+    """The kernel that K4 (``kind`` ``_K4``), K2 or K1 runs on patches of
+    ``h`` x ``w``: ``("cluster", 0)`` up to ``CLUSTER_MAX_PIXELS`` pixels,
+    else ``("groups", rows)`` where :func:`group_rows` cuts a patch into no
+    more slabs than the kind's ``GROUP_MIN_ROWS`` rows a slab would, else
+    ``("strips", 0)``."""
+    if h * w <= CLUSTER_MAX_PIXELS:
+        return "cluster", 0
+    rows = group_rows(h, w, is_complex, resident)
+    if rows and -(-h // rows) <= -(-h // GROUP_MIN_ROWS[kind]):
+        return "groups", rows
+    return "strips", 0
+
+
+@functools.cache
+def _resident(device, kind, is_complex):
+    """CTAs of the resident-group kernel of ``kind`` that the current card
+    holds at once (once per device)."""
+    fit = (ctypes.c_int * 3)()
+    _lib.check(_lib.load().rfi_extract_groups_occupancy(kind, int(is_complex), fit),
+               "extract_groups_occupancy")
+    return fit[1]
+
+
+def _route(kind, patches):
+    _, h, w = patches.shape
+    if h * w <= CLUSTER_MAX_PIXELS:
+        return "cluster", 0
+    resident = _resident(torch.cuda.current_device(), kind, patches.is_complex())
+    return extract_route(kind, h, w, patches.is_complex(), resident)
 
 
 def _check_patches(patches, dtypes):
@@ -97,6 +184,26 @@ def _extract_strips(kind, patches, out, amp=None, phase=None):
     _lib.check(rc, "extract_strips")
 
 
+def _extract_groups(kind, patches, rows, out, amp=None, phase=None, base_idx=None,
+                    pidx=None):
+    """Launch the resident-group kernel (csrc/extract_groups.cu) of kind
+    ``_K4`` (``out`` (N, H, W, 3)), ``_K2`` (``out`` = grad3, ``amp``,
+    ``phase``) or ``_K1`` (``out`` = grad, ``amp``, ``phase`` of the K
+    outputs of int32 ``base_idx``, ``pidx``) on checked, non-empty patches,
+    slabs of ``rows`` rows, with a scratch of 9 words a patch. The launch is
+    cooperative: it raises where the grid cannot be held at once."""
+    n, h, w = patches.shape
+    k = 0 if base_idx is None else base_idx.shape[0]
+    scratch = torch.empty(1 + 9 * n, dtype=torch.int32, device=patches.device)
+    rc = _lib.load().rfi_extract_groups(
+        kind, patches.data_ptr(), *(None if x is None else x.data_ptr()
+                                    for x in (base_idx, pidx, out, amp, phase)),
+        scratch.data_ptr(), n, k, h, w, rows, int(patches.is_complex()),
+        _lib.stream_of(patches),
+    )
+    _lib.check(rc, "extract_groups")
+
+
 def fused_extract_channels_plain(patches):
     """Plain PyTorch version of K4, on any device."""
     return P.imagenet_normalize(P.extract_channels(patches))
@@ -107,9 +214,8 @@ def fused_extract_channels(patches):
     ImageNet-normalised [gradient, log_amp, phase].
 
     A CPU tensor goes through the plain version. A CUDA tensor must be
-    contiguous complex64 or float32; patches of at most
-    ``CLUSTER_MAX_PIXELS`` pixels take the cluster kernel, larger ones the
-    strip kernel.
+    contiguous complex64 or float32; it takes the kernel that
+    :func:`extract_route` picks for its shape.
     """
     if patches.device.type == "cpu":
         return fused_extract_channels_plain(patches)
@@ -118,7 +224,10 @@ def fused_extract_channels(patches):
     out = torch.empty((n, h, w, 3), dtype=torch.float32, device=patches.device)
     if n == 0:
         return out
-    if h * w > CLUSTER_MAX_PIXELS:
+    route, rows = _route(_K4, patches)
+    if route == "groups":
+        _extract_groups(_K4, patches, rows, out)
+    elif route == "strips":
         _extract_strips(_K4, patches, out)
     else:
         rc = _lib.load().rfi_fused_extract_channels(
@@ -145,9 +254,8 @@ def fused_extract_channel_planes(patches):
     gets the min-max log-amplitude and a zero phase).
 
     A CPU tensor goes through the plain version. A CUDA tensor must be
-    contiguous complex64 or float32; patches of at most
-    ``CLUSTER_MAX_PIXELS`` pixels take the cluster kernel, larger ones the
-    strip kernel.
+    contiguous complex64 or float32; it takes the kernel that
+    :func:`extract_route` picks for its shape.
     """
     if patches.device.type == "cpu":
         return fused_extract_channel_planes_plain(patches)
@@ -167,7 +275,10 @@ def _planes_of(patches):
     phase = torch.empty_like(amp)
     if m == 0:
         return grad3, amp, phase
-    if h * w > CLUSTER_MAX_PIXELS:
+    route, rows = _route(_K2, patches)
+    if route == "groups":
+        _extract_groups(_K2, patches, rows, grad3, amp, phase)
+    elif route == "strips":
         _extract_strips(_K2, patches, grad3, amp, phase)
     else:
         rc = _lib.load().rfi_fused_extract_channel_planes(
@@ -214,12 +325,12 @@ def fused_gather_extract(patches, base_idx, pidx):
 
     A CPU tensor goes through the plain version. On the card the patches
     must be contiguous complex64 or float32, and the indices on the same
-    card. Patches of at most ``CLUSTER_MAX_PIXELS`` pixels take the
-    cluster kernel: each selected base patch is computed once, and written
-    to each output that selects it. Larger patches compute the same
-    function as the strip kernel's K2 planes of every base patch, in a
-    scratch of 20 B a base pixel, then K3's gather of the selected planes
-    (variant 0, no flip or transpose).
+    card; :func:`extract_route` picks the kernel by the shape. The cluster
+    and the resident-group kernels compute each selected base patch once,
+    and write it to each output that selects it (a base patch that nothing
+    selects is not read). The strip route computes the strip kernel's K2
+    planes of every base patch, in a scratch of 20 B a base pixel, then K3's
+    gather of the selected planes (variant 0, no flip or transpose).
     """
     if patches.device.type == "cpu":
         return fused_gather_extract_plain(patches, base_idx, pidx)
@@ -233,7 +344,10 @@ def fused_gather_extract(patches, base_idx, pidx):
     phase = torch.empty_like(grad)
     if k == 0:
         return grad, amp, phase
-    if h * w > CLUSTER_MAX_PIXELS:
+    route, rows = _route(_K1, patches)
+    if route == "groups":
+        _extract_groups(_K1, patches, rows, grad, amp, phase, base_idx, pidx)
+    elif route == "strips":
         planes = _planes_of(patches)
         variant = torch.zeros(k, dtype=torch.int32, device=patches.device)
         _gather_transform(planes, base_idx, pidx, variant, (grad, amp, phase))

@@ -6,7 +6,10 @@ min and max reduced across the 4 parts, divisions folded into reciprocals
 and FMAs, K1's outputs found per base patch by a scan of ``base_idx``, K4's
 channels interleaved as (N, H, W, 3)) against the plain versions and the
 JAX package, on the CPU; and the float32 square root that ``magnitude``
-takes on the card.
+takes on the card. Above 128 x 128: models of the strip kernel's two passes,
+of the resident-group kernel's slabs (``fused_extract_groups_model``: K4, K2
+and K1 fused, held also bit-equal to the strip model) and of K3's squares,
+and the shape-only routing (``extract_route``) between them.
 
 The JAX kernels run in Pallas interpret mode, as tests/test_ops.py runs
 them, on complex input without NaN (they take no min over NaN and treat
@@ -302,3 +305,154 @@ def test_gather_squares_model(h, w):
         want = tuple(torch.where(flip, g.flip(-2), g) for g in gathered)
     for g, wnt in zip(got, want):
         assert torch.equal(g, wnt)
+
+
+# Patches above 128 x 128 on the resident-group kernel (csrc/extract_groups.cu):
+# name -> (patches, rows a slab, the JAX function held beside the plain
+# version, as in CASES). 129x130 and 256x256 at the rows ``extract_route``
+# gives them on an H100 (15, 16); 1000x1024 at 11 rows, which do not divide
+# it (1000 = 90 x 11 + 10).
+GROUPS = {
+    "129x130": (lambda rng: _complex(rng, 2, 129, 130), 15, "pipeline"),
+    "256x256": (lambda rng: _complex(rng, 2, 256, 256), 16, "kernel"),
+    "1000x1024 R=11": (lambda rng: _complex(rng, 1, 1000, 1024), 11, "pipeline"),
+    "G=1 150x140": (lambda rng: _complex(rng, 2, 150, 140), 150, "pipeline"),
+    "G=256 256x256": (lambda rng: _complex(rng, 2, 256, 256), 1, "kernel"),
+    "NaN 150x140": (lambda rng: _with_nan(rng, 3, 150, 140), 16, "pipeline"),
+    "constant 144x144": (lambda rng: np.full((2, 144, 144), 2 + 1j, np.complex64), 16, None),
+    "real 33x1024": (lambda rng: rng.lognormal(0, 1, (2, 33, 1024)).astype(np.float32), 11,
+                     "pipeline"),
+    "real 130x131": (lambda rng: rng.normal(size=(2, 130, 131)).astype(np.float32), 9,
+                     "pipeline"),
+}
+
+
+def _nan_equal(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("case", list(GROUPS))
+def test_groups_model_channels(case):
+    """K4's resident-group model against its plain version and the Pallas
+    K4 (interpret mode) or the JAX reference pipeline, and bit-equal to the
+    strip kernel's model on the same input."""
+    make, rows, reference = GROUPS[case]
+    x = make(np.random.default_rng(19))
+    got = M.fused_extract_groups_model(_t(x), "K4", rows)
+    plain = F.fused_extract_channels_plain(_t(x))
+    assert got.shape == plain.shape == (*x.shape, 3)
+    _close(got, plain)
+    _nan_equal(got, M.fused_extract_strips_model(_t(x), "K4"))
+    if reference == "kernel":
+        _close(got, JK.fused_extract_channels(jnp.asarray(x), interpret=True))
+    elif reference == "pipeline":
+        _close(got, JP.imagenet_normalize(JP.extract_channels(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("case", list(GROUPS))
+def test_groups_model_planes(case):
+    make, rows, reference = GROUPS[case]
+    x = make(np.random.default_rng(20))
+    got = M.fused_extract_groups_model(_t(x), "K2", rows)
+    plain = F.fused_extract_channel_planes_plain(_t(x))
+    assert [tuple(g.shape) for g in got] == [tuple(p.shape) for p in plain]
+    for g, p, s in zip(got, plain, M.fused_extract_strips_model(_t(x), "K2")):
+        _close(g, p)
+        _nan_equal(g, s)
+    if reference:
+        for g, j in zip(got, _jax_planes(x, reference)):
+            _close(g, j)
+
+
+@pytest.mark.parametrize("pattern", ["odd K", "repeated pairs", "unselected bases",
+                                     "one base, 2 lists"])
+@pytest.mark.parametrize("case", ["129x130", "256x256", "NaN 150x140", "constant 144x144",
+                                  "real 130x131"])
+def test_groups_model_gather(case, pattern):
+    """K1 fused on the resident-group kernel, against its plain version
+    (the planes of every base patch, then the gather) and the Pallas K1
+    (interpret mode) or the JAX pipeline's planes gathered: repeated base
+    patches and (base, plane) pairs, base patches that nothing selects, and
+    one base patch with more outputs than a list holds (there the JAX
+    pipeline: the Pallas interpreter takes a grid step an output, 75 of
+    them)."""
+    make, rows, reference = GROUPS[case]
+    rng = np.random.default_rng(21)
+    x = make(rng)
+    base_idx, pidx = (a.astype(np.int32) for a in _indices(rng, pattern, x.shape[0]))
+    if reference == "kernel" and pattern == "one base, 2 lists":
+        reference = "pipeline"
+    got = M.fused_extract_groups_model(_t(x), "K1", rows, _t(base_idx), _t(pidx))
+    plain = F.fused_gather_extract_plain(_t(x), _t(base_idx), _t(pidx))
+    for g, p in zip(got, plain):
+        assert g.shape == (base_idx.size, *x.shape[1:])
+        _close(g, p)
+    if reference == "kernel":
+        ref = JK.fused_gather_extract(jnp.asarray(x), jnp.asarray(base_idx),
+                                      jnp.asarray(pidx), interpret=True)
+    elif reference == "pipeline":
+        grad3, amp, phase = (np.asarray(a) for a in JP.extract_channel_planes(jnp.asarray(x)))
+        ref = (grad3[pidx, base_idx], amp[base_idx], phase[base_idx])
+    for g, r in zip(got, ref if reference else ()):
+        _close(g, r)
+
+
+H100_RESIDENT = 4 * 132  # the resident-group kernel's CTAs on an H100: 4 an SM
+
+
+@pytest.mark.parametrize("kind, shape, is_complex, route", [
+    ("K4", (128, 128), True, ("cluster", 0)),
+    ("K1", (128, 127), False, ("cluster", 0)),
+    ("K4", (129, 130), True, ("groups", 15)),
+    ("K4", (256, 256), True, ("groups", 16)),
+    ("K2", (256, 256), True, ("groups", 16)),
+    ("K1", (256, 256), True, ("groups", 16)),
+    ("K4", (13200, 256), True, ("groups", 25)),
+    ("K4", (13201, 256), True, ("strips", 0)),
+    ("K4", (160, 691), True, ("groups", 8)),
+    ("K4", (160, 692), True, ("strips", 0)),
+    ("K4", (1024, 1024), True, ("strips", 0)),
+    ("K4", (1000, 1024), True, ("strips", 0)),
+    ("K2", (1024, 1024), True, ("groups", 4)),
+    ("K1", (1000, 1024), True, ("groups", 4)),
+    ("K2", (2048, 2048), True, ("strips", 0)),
+    ("K1", (2048, 2048), True, ("strips", 0)),
+    ("K4", (2048, 2048), True, ("strips", 0)),
+    ("K4", (1024, 1024), False, ("groups", 11)),
+    ("K4", (2048, 1382), False, ("groups", 8)),
+    ("K4", (2048, 1384), False, ("strips", 0)),
+    ("K2", (2048, 1384), False, ("groups", 7)),
+])
+def test_extract_route(kind, shape, is_complex, route):
+    """The kernel by shape on an H100: the cluster kernel up to 128 x 128
+    pixels; the resident-group kernel while a patch's slabs fit the
+    resident CTAs with the kind's fewest rows a slab (K4 8, K2 and K1 1;
+    16 rows where they fit, more where 16 would make too many slabs,
+    evened out); else the strip kernel."""
+    code = {"K4": F._K4, "K2": F._K2, "K1": F._K1}[kind]
+    assert F.extract_route(code, *shape, is_complex, H100_RESIDENT) == route
+
+
+def test_extract_route_never_overfills_the_grid():
+    """No shape whose slabs outnumber the resident CTAs, or whose slab with
+    its halo rows exceeds the shared memory budget, reaches the
+    resident-group kernel; a shape refused has no slab height that fits
+    with at least the kind's ``GROUP_MIN_ROWS`` rows."""
+    rng = np.random.default_rng(22)
+    for _ in range(4000):
+        h, w = (int(v) for v in rng.integers(1, 4096, 2))
+        is_complex = bool(rng.integers(0, 2))
+        resident = int(rng.choice([1, 7, 132, 264, 528]))
+        kind = int(rng.choice([F._K4, F._K2, F._K1]))
+        route, rows = F.extract_route(kind, h, w, is_complex, resident)
+        row_bytes = w * (8 if is_complex else 4)
+        fits = [r for r in range(1, h + 1)
+                if -(-h // r) <= resident and (r + 2) * row_bytes <= F.GROUP_SMEM_BYTES]
+        if h * w <= F.CLUSTER_MAX_PIXELS:
+            assert route == "cluster"
+        elif route == "groups":
+            assert rows in fits and -(-h // rows) <= -(-h // F.GROUP_MIN_ROWS[kind])
+            assert rows * (-(-h // rows) - 1) < h  # no empty slab
+        else:
+            assert route == "strips"
+            assert not [r for r in fits if r >= F.GROUP_MIN_ROWS[kind]]

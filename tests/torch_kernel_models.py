@@ -10,6 +10,10 @@ plain versions and the JAX package where the kernels themselves cannot run.
 - the strip kernel (``csrc/extract_strips.cu``) of K4 and K2 above
   128 x 128: the tiles with their halo row and column, the min and max
   combined as order-preserving integer keys;
+- the resident-group kernel (``csrc/extract_groups.cu``) of K4, K2 and K1
+  above 128 x 128: slabs of whole rows with their halo rows, each slab's
+  min and max combined into the patch's as integer keys (a min as the
+  key's complement), K1's outputs written from each selected base patch;
 - K3's 32 x 32 squares (``csrc/plane_gather.cu``).
 
 No path of the package runs these.
@@ -247,6 +251,107 @@ def fused_extract_strips_model(patches, kind):
     if kind == "K4":
         return torch.stack([grads[0], amp, phase], dim=-1)
     return torch.stack([grads[v] for v in planes]), amp, phase
+
+
+def _group_planes(patches, rows, planes):
+    """The resident-group kernel's passes on (n, h, w) patches cut into
+    slabs of ``rows`` rows: the gradient planes in ``planes`` (a dict),
+    the amplitude and phase planes (n, h, w)."""
+    n, h, w = patches.shape
+    dev = patches.device
+    la = torch.log10(P.magnitude(patches) + 1e-10)
+    slabs = [(r0, min(h, r0 + rows)) for r0 in range(0, h, rows)]
+    zero_row = torch.zeros_like(la[:, :1])
+
+    def slab_squares(r0, r1):
+        # the tile: the slab's rows and its halo rows, a zero row where the
+        # patch ends (no difference is taken there)
+        tile = torch.cat([la[:, r0 - 1:r0] if r0 > 0 else zero_row, la[:, r0:r1],
+                          la[:, r1:r1 + 1] if r1 < h else zero_row], dim=1)
+        own = tile[:, 1:-1]
+        row = torch.arange(r0, r1, device=dev)[None, :, None]
+        td_fwd = torch.where(row > 0, own - tile[:, :-2], 0.0)
+        td_down = torch.where(row < h - 1, tile[:, 2:] - own, 0.0)
+        zero = torch.zeros_like(own[..., :1])
+        fd_fwd = torch.cat([zero, own[..., 1:] - own[..., :-1]], dim=-1)
+        fd_down = torch.cat([own[..., 1:] - own[..., :-1], zero], dim=-1)
+        tf2, ff2 = td_fwd * td_fwd, fd_fwd * fd_fwd
+        g = {0: tf2 + ff2, 1: td_down * td_down + ff2, 2: tf2 + fd_down * fd_down}
+        return {v: g[v] for v in planes}, own
+
+    # pass A: each slab's min and max into the patch's keys, all zero at
+    # first: atomicMax of the min's complement and of the max
+    lo_key = torch.zeros((n, 4), dtype=torch.int64, device=dev)
+    hi_key = torch.zeros((n, 4), dtype=torch.int64, device=dev)
+    for r0, r1 in slabs:
+        squares, own = slab_squares(r0, r1)
+        if not patches.is_complex():
+            squares[3] = own
+        for s, x in squares.items():
+            lo, hi = _nan_skipping_min_max(x)
+            lo_key[:, s] = torch.maximum(lo_key[:, s], ~_order_key(lo) & 0xFFFFFFFF)
+            hi_key[:, s] = torch.maximum(hi_key[:, s], _order_key(hi))
+    lo, hi = _key_value(~lo_key & 0xFFFFFFFF), _key_value(hi_key)
+    lo[:, :3], hi[:, :3] = _sqrt(lo[:, :3]), _sqrt(hi[:, :3])
+
+    # pass B: each slab's roots normalised by the patch's min and max
+    grads = {v: torch.empty((n, h, w), device=dev) for v in planes}
+    amp = torch.empty((n, h, w), device=dev)
+    for r0, r1 in slabs:
+        squares, own = slab_squares(r0, r1)
+        for v in planes:
+            grads[v][:, r0:r1] = _norm(_sqrt(squares[v]), lo[:, v], hi[:, v], _STD[0],
+                                       _SHIFT[0])
+        if patches.is_complex():
+            amp[:, r0:r1] = _fma(torch.clamp(_fma(own, _AMP_SCALE, _AMP_SHIFT), 0.0, 1.0),
+                                 _INV_STD1, _SHIFT[1])
+        else:
+            amp[:, r0:r1] = _norm(own, lo[:, 3], hi[:, 3], _STD[1], _SHIFT[1])
+    if patches.is_complex():
+        phase = _fma(torch.atan2(patches.imag, patches.real).float(),
+                     _PHASE_SCALE, _PHASE_SHIFT)
+    else:
+        phase = torch.full_like(la, float(-_MEAN[2] / _STD[2]))
+    return grads, amp, phase
+
+
+def fused_extract_groups_model(patches, kind, rows, base_idx=None, pidx=None):
+    """Torch model of the resident-group kernel's passes
+    (csrc/extract_groups.cu) on slabs of ``rows`` rows, on any device:
+    ``kind`` "K4" returns :func:`fused_extract_channels`' output, "K2"
+    :func:`fused_extract_channel_planes`', "K1" (with ``base_idx`` and
+    ``pidx``) :func:`fused_gather_extract`'.
+
+    Each slab takes log10|x| of its rows and of its halo rows (a zero row
+    where the patch ends). Pass A reduces the slab's min and max of the
+    squared gradients (and of real input's log-amplitude), NaN skipped,
+    and combines them into the patch's as integer keys; pass B normalises
+    the slab's gradient roots by the roots of the patch's least and
+    largest squares, with the cluster kernel's reciprocal-and-FMA
+    arithmetic. K1 finds each base patch's outputs by a scan of
+    ``base_idx`` in order, computes a selected base patch once with the
+    gradient planes its outputs select, and writes each output, ``LIST_CAP``
+    at a time; a base patch that nothing selects is not computed, and an
+    output that no scan reaches stays NaN."""
+    if kind == "K4":
+        grads, amp, phase = _group_planes(patches, rows, (0,))
+        return torch.stack([grads[0], amp, phase], dim=-1)
+    if kind == "K2":
+        grads, amp, phase = _group_planes(patches, rows, (0, 1, 2))
+        return torch.stack([grads[v] for v in range(3)]), amp, phase
+    m, h, w = patches.shape
+    outs = tuple(torch.full((base_idx.shape[0], h, w), float("nan"), device=patches.device)
+                 for _ in range(3))
+    for b in range(m):
+        js = torch.nonzero(base_idx == b).flatten().tolist()
+        if not js:
+            continue
+        vs = [int(pidx[j]) for j in js]
+        grads, amp, phase = _group_planes(patches[b:b + 1], rows, sorted(set(vs)))
+        for first in range(0, len(js), LIST_CAP):
+            for j, v in zip(js[first:first + LIST_CAP], vs[first:first + LIST_CAP]):
+                outs[0][j], outs[1][j], outs[2][j] = grads[v][0], amp[0], phase[0]
+    return outs
 
 
 def fused_plane_gather_transform_model(planes, base_idx, pidx, variant):

@@ -2,7 +2,8 @@
 """Time K6a (conv3x3_call), K6b (conv3x3_dw), K7 (double_conv_gn_relu),
 K5 (mad_flag_patches), K1 (fused_gather_extract), K2
 (fused_extract_channel_planes) and K4 (fused_extract_channels) of one or
-more checkouts of the port on one card, in turns.
+more checkouts of the port on one card, in turns, and the paths that run
+K1, K2 and K4 above 128 x 128.
 
     python3 tools/conv_kernel_turns.py                       # this checkout
     python3 tools/conv_kernel_turns.py build/old . . build/old
@@ -32,6 +33,19 @@ batch 128 times:
   variants), so that base patches repeat, at most 4 times, and the
   (base, gradient plane) pair repeats where variants orig and T meet
   (the shape of the training path's static selection),
+- above 128 x 128, on ``chip_smoke.make_waterfalls``' 8 complex64
+  waterfalls of 1024 x 1024 and their masks (``PERF.md``'s rows): K4 at
+  (32, 256, 256) and (128, 1024, 1024), as "K4_large", K2 at (128, 256,
+  256), as "K2_large", K1 at the static selection of patch 256 (M=128,
+  K=480), as "K1_large";
+- the paths that run them (no error; ms a call of the host's clock, the
+  rate beside it): ``flag_waterfalls(method="model", patch_size=256)``
+  with the UNet16 snapshot (``chip_smoke.py`` phase 5's call), as
+  "model_256"; ``Preprocessor.create_dataset`` at patch 256, K=480, on
+  the 'auto' (K1) and 'planes' (K2 + K3) routes (phase 8's calls), as
+  "prep_256"; ``RawPatchTrainer`` (UNet32 bf16, batch 32) on
+  ``DevicePreprocessor``'s 256 x 256 patches (phase 15), 20 warm epochs,
+  as "raw_patch",
 
 on seeded random inputs (the convolutions do the same work whatever the
 values), each against its plain PyTorch version (TF32 off) for the
@@ -53,12 +67,17 @@ import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 BATCH = 128
 SIDE = 128
-KERNELS = ("K6a", "K6a_dx", "K6b", "K7", "K5", "K5_equal", "K5_whole", "K1", "K2", "K4")
+LARGE, K_LARGE = 256, 480  # patches above 128 x 128: the static selection's
+KERNELS = ("K6a", "K6a_dx", "K6b", "K7", "K5", "K5_equal", "K5_whole", "K1", "K2", "K4",
+           "K4_large", "K2_large", "K1_large", "model_256", "prep_256", "raw_patch")
+PATHS = ("model_256", "prep_256", "raw_patch")
 REPO = Path(__file__).resolve().parents[1]
+SNAPSHOT = REPO / "pretrained" / "unet16_synthetic.npz"
 
 
 def load_chip_smoke():
@@ -208,8 +227,89 @@ def worker(root, only):
                 got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
                 rows[name].append({"shape": shape, "gflop": 0.0, "err": abs_err(got, want),
                                    "ms": smoke.cuda_ms(lambda: fn(*args))})
+    if {"K4_large", "K2_large", "K1_large", *PATHS} & set(only):
+        large(torch, smoke, only, rows)
     print(json.dumps({"root": root, "build_s": lib.build_seconds,
                       "device": torch.cuda.get_device_name(0), "rows": rows}), flush=True)
+
+
+def large(torch, smoke, only, rows):
+    """The ``only`` of K4_large, K2_large, K1_large and the paths into
+    ``rows``."""
+    import numpy as np
+
+    from rfi_toolbox_tpu_torch import ops
+    from rfi_toolbox_tpu_torch.io import flag_waterfalls
+    from rfi_toolbox_tpu_torch.models import UNet
+    from rfi_toolbox_tpu_torch.preprocess import DevicePreprocessor, Preprocessor
+    from rfi_toolbox_tpu_torch.preprocess import pipeline as P
+    from rfi_toolbox_tpu_torch.preprocess.static_prep import make_static_prep_fn
+    from rfi_toolbox_tpu_torch.serving import CompiledPredictor
+    from rfi_toolbox_tpu_torch.train import RawPatchTrainer
+
+    dev = torch.device("cuda")
+    wf_np, mask_np = smoke.make_waterfalls(np.random.default_rng(smoke.SEED))
+    wf, mask = torch.from_numpy(wf_np).to(dev), torch.from_numpy(mask_np).to(dev)
+    prep = make_static_prep_fn(LARGE, K_LARGE, return_patches=False)
+    sel = prep.base(wf, mask)
+    keep = P.static_select_from_has(sel.has, K_LARGE, torch.Generator(device=dev).manual_seed(0))
+    base_idx, _, pidx = prep.indices(sel, keep)
+    base = sel.base.contiguous()
+    p256 = P.patchify_batch(wf, LARGE).contiguous()
+
+    def kernel(name, fn, plain, args, shape, calls=50):
+        got, want = fn(*args), plain(*args)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        rows[name].append({"shape": shape, "gflop": 0.0,
+                           "err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+                           "ms": smoke.cuda_ms(lambda: fn(*args), calls=calls)})
+    if "K4_large" in only:
+        kernel("K4_large", ops.fused_extract_channels, ops.fused_extract_channels_plain,
+               (p256[:32],), "(32,256,256) complex64")
+        kernel("K4_large", ops.fused_extract_channels, ops.fused_extract_channels_plain,
+               (wf.repeat(16, 1, 1),), "(128,1024,1024) complex64", calls=10)
+    if "K2_large" in only:
+        kernel("K2_large", ops.fused_extract_channel_planes,
+               ops.fused_extract_channel_planes_plain, (base,),
+               f"({base.shape[0]},256,256) complex64")
+    if "K1_large" in only:
+        kernel("K1_large", ops.fused_gather_extract, ops.fused_gather_extract_plain,
+               (base, base_idx, pidx), f"M={base.shape[0]}, K={K_LARGE}, 256^2 complex64")
+    if "model_256" in only:
+        pred = CompiledPredictor.from_snapshot(str(SNAPSHOT), batch_size=smoke.FLAG_BATCH_LARGE,
+                                               input_shape=(LARGE, LARGE, 3))
+
+        def flag():
+            flag_waterfalls(wf, method="model", predictor=pred, patch_size=LARGE)
+        flag()  # warm-up
+        rate, lo, hi, _, _ = smoke.calls_per_s(flag)
+        n = wf.shape[0]
+        rows["model_256"].append({
+            "shape": f"8 x 1024^2, {n * rate:.4g} ({n * lo:.4g}-{n * hi:.4g}) waterfalls/s",
+            "gflop": 0.0, "err": None, "ms": 1e3 / rate})
+    if "prep_256" in only:
+        for route in ("auto", "planes"):
+            def run():
+                Preprocessor(wf[:, None], flags=mask[:, None]).create_dataset(
+                    patch_size=LARGE, seed=0, extract=route, use_custom_flags=True,
+                    static_num_patches=K_LARGE)
+            run()
+            rows["prep_256"].append({"shape": f"'{route}', K={K_LARGE}", "gflop": 0.0,
+                                     "err": None, "ms": smoke.host_ms(run, repeats=5)})
+    if "raw_patch" in only:
+        raw, raw_masks = DevicePreprocessor(wf, mask).create_raw_patches(seed=0)
+        trainer = RawPatchTrainer(UNet(init_features=32, norm="batch", dtype=torch.bfloat16),
+                                  seed=1)
+        batch = smoke.RAW_BATCH
+        trainer.fit(raw, raw_masks, num_epochs=1, batch_size=batch)  # cuDNN set-up
+        torch.cuda.synchronize()
+        steps0, t0 = trainer.state.step, time.perf_counter()
+        trainer.fit(raw, raw_masks, num_epochs=smoke.RAW_WARM_EPOCHS, batch_size=batch)
+        torch.cuda.synchronize()
+        seconds, steps = time.perf_counter() - t0, trainer.state.step - steps0
+        rows["raw_patch"].append({
+            "shape": f"UNet32 bf16, batch {batch}, {steps * batch / seconds:.1f} patches/s",
+            "gflop": 0.0, "err": None, "ms": 1e3 * seconds / steps})
 
 
 def main(roots, only, json_path=None):
@@ -229,13 +329,15 @@ def main(roots, only, json_path=None):
         for name, rows in run["rows"].items():
             for r in rows:
                 rate = f", {r['gflop'] / r['ms']:.1f} TFLOP/s direct" if r["gflop"] else ""
-                print(f"run {i} {root} {name} {r['shape']}: {r['ms']:.4f} ms{rate}, "
-                      f"err {r['err']:.1e}")
+                err = "" if r["err"] is None else f", err {r['err']:.1e}"
+                print(f"run {i} {root} {name} {r['shape']}: {r['ms']:.4f} ms{rate}{err}")
             total = sum(r["ms"] for r in rows)
             gflop = sum(r["gflop"] for r in rows)
             rate = f" ({gflop / total:.1f} TFLOP/s direct)" if gflop else ""
-            print(f"run {i} {root} {name} sum: {total:.4f} ms{rate}, worst err "
-                  f"{max(r['err'] for r in rows):.1e}; build {run['build_s']:.1f} s", flush=True)
+            errs = [r["err"] for r in rows if r["err"] is not None]
+            worst = f", worst err {max(errs):.1e}" if errs else ""
+            print(f"run {i} {root} {name} sum: {total:.4f} ms{rate}{worst}; "
+                  f"build {run['build_s']:.1f} s", flush=True)
     if json_path:
         Path(json_path).parent.mkdir(parents=True, exist_ok=True)
         Path(json_path).write_text(json.dumps({"card": smi, "runs": runs}, indent=1))
