@@ -24,7 +24,8 @@ exit) if any phase fails:
    above 128 x 128, 12 instances: registers, spills, its dynamic shared
    memory and the CTAs resident on an SM and on the card), of the strip
    kernel (above 128 x 128 where the group kernel's slabs do not fit) and
-   of K3's tiled kernel;
+   of K3's kernel (4 instances: TMA or per-thread loads, planes or
+   images; registers, spills, shared memory, CTAs resident);
 3. K4 (fused_extract_channels) against its plain PyTorch version on the
    card: 512 complex64 128x128 patches cut from 8 waterfalls of 1024 x
    1024, an odd N, a constant patch, real float32 input, NaN pixels (and
@@ -70,11 +71,21 @@ exit) if any phase fails:
    1-pixel groups), and for K1 repeated (base, plane) pairs, base
    patches no output selects and one base patch selected 150 times
    (more than one list of its outputs): K1 and K2 within 2e-5 (NaN where
-   the plain version has NaN), shapes equal, K3 bit-equal; time per call
-   (K1's scan for its outputs inside the call) and bound; then the same
-   above 128 x 128 (K2 and K1 on the resident-group kernel or, where its
-   slabs do not fit, the strip kernel and, for K1, the strip K2 and K3's
-   gather; K3 32 x 32 squares): 32 and 512 x 256^2, 8 x 1024^2, real, NaN,
+   the plain version has NaN), shapes equal; K3 bit-equal (0 elements
+   differ) as three planes, as channels-last images and in identity mode
+   (the images of the gathered planes, as the 'auto' route takes K1's) on
+   the selection, an odd K, int32 indices, NaN pixels, repeated pairs with
+   unselected bases, one base 150 times, K=1 of M=1, ragged squares (33^2,
+   100^2, 127^2) and, launched directly with variants 0 and 1, 33 x 128 and
+   128 x 127; time per call (K1's scan for its outputs inside the call)
+   and bound; K3's wrapper, images wrapper, kernel launched directly in
+   each layout and in identity mode, beside torch.Tensor.copy_ of the
+   images' bytes; a bad index passed to K3 makes a subprocess exit
+   non-zero; then the same above 128 x 128 (K2 and K1 on the
+   resident-group kernel or, where its slabs do not fit, the strip kernel
+   and, for K1, the strip K2 and K3's gather; K3 as above at the 256^2
+   selection, 8 x 1024^2, one 2048^2 patch, 129 x 130 and 1000 x 1024,
+   and timed at 256^2): 32 and 512 x 256^2, 8 x 1024^2, real, NaN,
    constant, 129 x 130 and 1000 x 1024, misaligned, one 2048^2 patch,
    each also on both kernels launched directly (the wrapper and both
    within 2e-5, all three equal element for element), the kernels a call
@@ -93,13 +104,18 @@ exit) if any phase fails:
    K3) routes at patch_size=256 (K=480) and 1024 (K=30 of two 2048^2
    waterfalls), on the resident-group kernel, and at patch_size=2048 (K=7
    of one 2048 x 4096 waterfall), on the strip kernel (K1 as the strip K2
-   and K3);
+   and K3); each route's launches exact (K1 and K3 once on 'auto', K2
+   and K3 once on 'planes', K5 too with MAD flags, K4 alone on the
+   materialised path), and on 'auto' and 'planes' at patches 128 and 256
+   no aten stack, cat, where or copy_ whose output has the images' shape
+   (torch.profiler, record_shapes and profile_memory; the old epilogue's
+   stack and where, run beside as a control, are seen);
 9. the training main path at full width: the port's generator (bench.py's
    event mix) -> static prep (K=1920, default route) -> UNet(32,
    norm="batch") in bfloat16 trained for 15 steps of 128 per iteration;
    patches/s of the loop (median and spread of 3 windows), train-only
-   patches/s and TFLOP/s against the bf16 peak, K1 launches (one per
-   iteration), every loss finite and falling; and two float32 steps
+   patches/s and TFLOP/s against the bf16 peak, K1 and K3 launches (one
+   each per iteration), every loss finite and falling; and two float32 steps
    (TF32 off) on 8 images each on the card and on the CPU from the same
    seeded weights: both losses within 1e-4 relative, the card's first
    gradient at most twice as far from a float64 CPU gradient as the
@@ -640,7 +656,8 @@ def kernel_report(lib, nvcc):
     and its dynamic shared memory, and fail if none fits for one of them or
     if one of its 12 instances is missing, or one of the resident-group
     kernel's 12 (K4, K2 and K1 above 128 x 128, with the CTAs it keeps
-    resident: fail if none), the strip kernel's 16 or K3's tiled kernel;
+    resident: fail if none), the strip kernel's 16 or K3's 4 (with the
+    CTAs it keeps resident: fail if none);
     fail if a 3xTF32 kernel (K6b's conv3x3_dw_kernel, K6a's and K7's
     conv3x3_mma_kernel) holds another count than hmma_expected's, or if
     K6a's four tiles (kChunkSums true) are missing."""
@@ -648,7 +665,7 @@ def kernel_report(lib, nvcc):
     kernels = ("conv3x3_dw_kernel", "conv3x3_mma_kernel", "group_stats_kernel",
                "gn_relu_kernel", "sum_splits_kernel", "mad_flags_kernel",
                "cluster_extract_kernel", "group_extract_kernel", "strip_extract_kernel",
-               "plane_gather_tiled_kernel")
+               "plane_gather_kernel")
     tool = Path(nvcc).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib.path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -687,10 +704,11 @@ def kernel_report(lib, nvcc):
             f"K1's, K2's and K4's kernel: {len(extract)} of 12 instances compiled")
     log("  (cluster_extract_kernel<complex, kind: 0 K2, 1 K1, 2 K4, pixels a group>)")
     strips = [r for r in names if "strip_extract_kernel" in r]
-    require(len(strips) == 16 and any("plane_gather_tiled_kernel" in r for r in names),
-            f"the strip kernel: {len(strips)} of 16 instances compiled, or K3's tiled "
-            "kernel is missing")
+    require(len(strips) == 16, f"the strip kernel: {len(strips)} of 16 instances compiled")
     log("  (strip_extract_kernel<complex, kind: 0 K2, 2 K4, pixels a group, pass 2>)")
+    gathers = [r for r in names if "plane_gather_kernel" in r]
+    require(len(gathers) == 4, f"K3's kernel: {len(gathers)} of 4 instances compiled")
+    log("  (plane_gather_kernel<TMA loads and 16-byte stores, pixel stride>)")
     fit = (ctypes.c_int * 3)()
     groups = [r for r in names if "group_extract_kernel" in r]
     require(len(groups) == 12,
@@ -703,6 +721,14 @@ def kernel_report(lib, nvcc):
                 f"resident-group kernel, {fit[0]} CTAs an SM at its {fit[2]} bytes of dynamic "
                 f"shared memory, {fit[1]} resident on the card (rc {rc})")
             require(rc == 0 and fit[1] > 0, f"{name}: no CTA of the resident-group kernel fits")
+    for fast in (1, 0):
+        for stride in (1, 3):
+            rc = lib.rfi_plane_gather_occupancy(fast, stride, fit)
+            log(f"  K3 ({'TMA' if fast else 'per-thread loads'}, "
+                f"{'planes' if stride == 1 else 'images'}): {fit[0]} CTAs an SM at "
+                f"{fit[2]} bytes of dynamic shared memory, {fit[1]} resident on the card "
+                f"(rc {rc})")
+            require(rc == 0 and fit[1] > 0, "K3: no CTA fits")
     for kind, name in ((1, "K1"), (0, "K2"), (2, "K4")):
         for is_complex in (1, 0):
             rc = lib.rfi_channel_planes_occupancy(kind, is_complex, PATCH, PATCH, fit)
@@ -759,6 +785,119 @@ def differing(got, want):
                for a, b in zip(got, want))
 
 
+def k3_differing(planes, base_idx, pidx, variant):
+    """Elements in which K3 differs from its plain version (NaN equals
+    NaN): ``(planes, images, identity)``, the wrapper's three planes, the
+    images wrapper's channels-last images, and the images wrapper's
+    identity mode on the gathered planes (as the 'auto' route takes
+    K1's) against the stack and transform it replaces."""
+    from rfi_toolbox_tpu_torch import ops
+    from rfi_toolbox_tpu_torch.ops import fused_channels as F
+
+    want = ops.fused_plane_gather_transform_plain(planes, base_idx, pidx, variant)
+    got = ops.fused_plane_gather_transform(planes, base_idx, pidx, variant)
+    images = ops.fused_plane_gather_transform_images(planes, base_idx, pidx, variant)
+    gathered = tuple(x.contiguous() for x in F._gather_planes(planes, base_idx, pidx))
+    ident = ops.fused_plane_gather_transform_images(gathered, None, None, variant)
+    want_ident = ops.fused_plane_gather_transform_images_plain(gathered, None, None, variant)
+    torch.cuda.synchronize()
+    return (differing(got, want), differing((images,), (torch.stack(want, -1),)),
+            differing((ident,), (want_ident,)))
+
+
+def k3_rect_diff(planes, base_idx, pidx, variant):
+    """K3 on tiles of any h x w with variants 0 and 1 (as K1's strip route
+    takes it), launched directly as planes and as images: the elements
+    in which each differs from the row flip of the gathered planes."""
+    from rfi_toolbox_tpu_torch.ops import fused_channels as F
+
+    _, h, w = planes[1].shape
+    k = base_idx.numel()
+    idx = [x.to(torch.int32).contiguous() for x in (base_idx, pidx, variant)]
+    want = tuple(torch.where((variant == 1)[:, None, None], x.flip(-2), x)
+                 for x in F._gather_planes(planes, base_idx, pidx))
+    out1 = torch.empty((3, k, h, w), device=planes[1].device)
+    out3 = torch.empty((k, h, w, 3), device=planes[1].device)
+    F._gather_transform(planes, *idx, out1, 1)
+    F._gather_transform(planes, *idx, out3, 3)
+    torch.cuda.synchronize()
+    return differing(tuple(out1), want), differing((out3,), (torch.stack(want, -1),))
+
+
+def k3_times(planes, base_idx, pidx, variant):
+    """K3's ms a call at one shape (``cuda_ms``): the wrapper (three
+    planes), the images wrapper, the kernel launched directly as planes
+    and as images (indices and outputs made once), its identity mode on
+    the gathered planes into images, and ``torch.Tensor.copy_`` of the
+    images' bytes (what the card moves that traffic in)."""
+    from rfi_toolbox_tpu_torch import ops
+    from rfi_toolbox_tpu_torch.ops import fused_channels as F
+
+    _, h, w = planes[1].shape
+    k = base_idx.numel()
+    dev = planes[1].device
+    idx = F._gather_indices(k, dev, base_idx, pidx, variant)
+    out1 = torch.empty((3, k, h, w), device=dev)
+    out3 = torch.empty((k, h, w, 3), device=dev)
+    gathered = tuple(x.contiguous() for x in F._gather_planes(planes, base_idx, pidx))
+    src = torch.empty(k * h * w * 3, device=dev)
+    dst = torch.empty_like(src)
+    return {
+        "wrapper": cuda_ms(lambda: ops.fused_plane_gather_transform(
+            planes, base_idx, pidx, variant)),
+        "images wrapper": cuda_ms(lambda: ops.fused_plane_gather_transform_images(
+            planes, base_idx, pidx, variant)),
+        "kernel": cuda_ms(lambda: F._gather_transform(planes, *idx, out1, 1)),
+        "images kernel": cuda_ms(lambda: F._gather_transform(planes, *idx, out3, 3)),
+        "identity kernel": cuda_ms(lambda: F._gather_transform(gathered, None, None, idx[2],
+                                                               out3, 3)),
+        "copy_": cuda_ms(lambda: dst.copy_(src)),
+    }
+
+
+# a subprocess that passes K3 a base_idx one past the last base patch,
+# after a good call: the kernel traps, so it must exit non-zero
+K3_BAD_INDEX = """
+import sys
+import torch
+sys.path.insert(0, {root!r})
+from rfi_toolbox_tpu_torch import ops
+x = torch.polar(torch.rand(4, 64, 64, device="cuda") + 0.5, torch.rand(4, 64, 64, device="cuda"))
+planes = ops.fused_extract_channel_planes(x)
+idx = torch.tensor([0, 3, 1], device="cuda")
+ops.fused_plane_gather_transform(planes, idx, idx % 3, idx % 4)
+torch.cuda.synchronize()
+print("good call ok", flush=True)
+ops.fused_plane_gather_transform(planes, torch.tensor([0, 4, 1], device="cuda"), idx % 3, idx % 4)
+torch.cuda.synchronize()
+print("bad call returned", flush=True)
+"""
+
+
+def image_passes(fn, k, side):
+    """The aten stack, cat, where and copy_ calls of ``fn()`` whose output
+    has the images' shape (k, side, side, 3) float32, by torch.profiler
+    (record_shapes, profile_memory): a stack, cat or where that allocates
+    the images' bytes on the card, or a where or copy_ with an argument of
+    that shape. Returns their names."""
+    shape = [k, side, side, 3]
+    n_bytes = 4 * k * side * side * 3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA],
+                                record_shapes=True, profile_memory=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = []
+    for e in prof.events():
+        name = e.name.split("::")[-1]
+        if name not in ("stack", "cat", "where", "copy_"):
+            continue
+        allocates = name != "copy_" and e.device_memory_usage >= n_bytes
+        if allocates or (name in ("where", "copy_") and shape in e.input_shapes):
+            found.append(name)
+    return found
+
+
 def direct_kernel(kind, route, x, base_idx=None, pidx=None):
     """``(call, outputs, rows)``: ``call()`` launches K4's ("K4"), K2's or
     K1's kernel of ``route`` above 128 x 128 directly on ``x`` (no wrapper
@@ -773,7 +912,11 @@ def direct_kernel(kind, route, x, base_idx=None, pidx=None):
     plane_shapes = [(3, n, h, w), (n, h, w), (n, h, w)]
     shapes = {"K4": [(n, h, w, 3)], "K2": plane_shapes,
               "K1": [(0 if base_idx is None else base_idx.numel(), h, w)] * 3}[kind]
-    outs = tuple(torch.empty(sh, device=x.device) for sh in shapes)
+    if kind == "K1":  # one buffer of its three planes, as the wrapper's
+        buf = torch.empty((3, *shapes[0]), device=x.device)
+        outs = tuple(buf)
+    else:
+        outs = tuple(torch.empty(sh, device=x.device) for sh in shapes)
     idx = ()
     if kind == "K1":
         idx = (base_idx.to(torch.int32), pidx.to(torch.int32))
@@ -792,7 +935,7 @@ def direct_kernel(kind, route, x, base_idx=None, pidx=None):
 
     def call():
         F._extract_strips(F._K2, x, *planes)
-        F._gather_transform(planes, *idx, variant, outs)
+        F._gather_transform(planes, *idx, variant, buf, 1)
     return call, outs, 0
 
 
@@ -828,7 +971,7 @@ def route_kernels(kind, route):
     if route == "groups":
         return ["group_extract_kernel"]
     return (["init_keys_kernel", "strip_extract_kernel", "strip_extract_kernel"]
-            + (["plane_gather_tiled_kernel"] if kind == "K1" else []))
+            + (["plane_gather_kernel"] if kind == "K1" else []))
 
 
 def port_kernels(fn, want, calls=8, tries=4):
@@ -1887,7 +2030,10 @@ def main():
     )
     from rfi_toolbox_tpu_torch.preprocess import DevicePreprocessor, Preprocessor
     from rfi_toolbox_tpu_torch.preprocess import pipeline as P
-    from rfi_toolbox_tpu_torch.preprocess.static_prep import make_static_prep_fn
+    from rfi_toolbox_tpu_torch.preprocess.static_prep import (
+        make_static_prep_fn,
+        transform_by_variant_nhwc,
+    )
     from rfi_toolbox_tpu_torch.serving import CompiledPredictor
     from rfi_toolbox_tpu_torch.synth import (
         RFISimulator,
@@ -2246,21 +2392,52 @@ def main():
         got, want = ops.fused_gather_extract(*args), ops.fused_gather_extract_plain(*args)
         torch.cuda.synchronize()
         k1_err[name] = extract_err(got, want, f"K1 {name}")
-    k3_diff = {}
-    for name, idx in {f"K={K_STATIC}": slice(None), "odd K=37": odd}.items():
-        args = (planes, base_idx[idx], pidx[idx], variant[idx])
-        got = ops.fused_plane_gather_transform(*args)
-        want = ops.fused_plane_gather_transform_plain(*args)
-        torch.cuda.synchronize()
-        k3_diff[name] = sum(int((g != w).sum()) for g, w in zip(got, want))
+    # K3: (planes, images, identity) elements differing, and on rectangular
+    # tiles (variants 0, 1) (planes, images)
+    nan_sel = base_idx < 64
+    k3_cases = {
+        f"K={K_STATIC}": (planes, base_idx, pidx, variant),
+        "odd K=37": (planes, base_idx[odd], pidx[odd], variant[odd]),
+        "int32 indices": (planes, base_idx.int(), pidx.int(), variant.int()),
+        "NaN pixels": (ops.fused_extract_channel_planes(nan_base), base_idx[nan_sel],
+                       pidx[nan_sel], variant[nan_sel]),
+        "repeated pairs, bases unselected": (
+            planes, torch.tensor([7, 7, 7, 3, 7, 3, 7], device=dev),
+            torch.tensor([2, 2, 2, 0, 2, 1, 2], device=dev),
+            torch.tensor([3, 3, 0, 1, 2, 2, 0], device=dev)),
+        "one base 150 times": (planes, many,
+                               torch.randint(0, 3, many.shape, generator=g).to(dev),
+                               torch.randint(0, 4, many.shape, generator=g).to(dev)),
+        "K=1 of M=1": (ops.fused_extract_channel_planes(base[:1]), torch.tensor([0], device=dev),
+                       torch.tensor([1], device=dev), torch.tensor([3], device=dev)),
+        **{f"{s}^2": (ops.fused_extract_channel_planes(base[:16, :s, :s].contiguous()),
+                      base_idx[small], pidx[small], variant[small]) for s in (33, 100, 127)},
+    }
+    k3_diff = {name: k3_differing(*args) for name, args in k3_cases.items()}
+    for name in ("33x128", "128x127"):
+        k3_diff[f"{name} (variants 0, 1)"] = k3_rect_diff(
+            ops.fused_extract_channel_planes(ragged[name]), base_idx[small], pidx[small],
+            variant[small] % 2)
+    del k3_cases
     log("K2 max|kernel-plain|: " + ", ".join(f"{k} {v:.2e}" for k, v in k2_err.items())
         + "; K1: " + ", ".join(f"{k} {v:.2e}" for k, v in k1_err.items())
-        + f" (tol {EXTRACT_TOL:g}); K3 values differing: "
+        + f" (tol {EXTRACT_TOL:g}); K3 elements differing (planes, images, identity): "
         + ", ".join(f"{k} {v}" for k, v in k3_diff.items()) + " (must be 0)")
     require(max(k2_err.values()) <= EXTRACT_TOL, "K2 disagrees with its plain version")
     require(max(k1_err.values()) <= EXTRACT_TOL, "K1 disagrees with its plain version")
-    require(not any(k3_diff.values()), "K3 is not bit-equal to its plain version")
+    require(not any(any(v) for v in k3_diff.values()),
+            "K3 is not bit-equal to its plain version")
+    # a bad index traps in the kernel: the process stops
+    bad = subprocess.run([sys.executable, "-c", K3_BAD_INDEX.format(root=str(Path.cwd()))],
+                         capture_output=True, text=True, timeout=300)
+    trapped = (bad.returncode != 0 and "good call ok" in bad.stdout
+               and "bad call returned" not in bad.stdout)
+    err_line = (bad.stderr.strip().splitlines() or ["(none)"])[-1]
+    log(f"K3 with a base_idx past the last base patch, in a subprocess: exit {bad.returncode}, "
+        f"last error line {err_line[:160]!r}")
+    require(trapped, "K3: a bad index did not stop the process")
 
+    k1_planes = ops.fused_gather_extract(base, base_idx, pidx)
     static_kernels = {
         "K2": (lambda: ops.fused_extract_channel_planes(base),
                lambda: ops.fused_extract_channel_planes_plain(base),
@@ -2282,6 +2459,18 @@ def main():
         log(f"{name} at M={m_base}, K={K_STATIC}, 128^2: kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
             f"{k_ms / bound_ms:.1f}x the bound")
+    # K3's identity mode reads the K gathered planes once and writes them
+    k3_ms = k3_times(planes, base_idx, pidx, variant)
+    k3_identity_bound = bound(2 * 3 * 4 * K_STATIC * px + 8 * K_STATIC, 0)[0]
+    identity_ms = cuda_ms(lambda: ops.fused_plane_gather_transform_images(
+        k1_planes, None, None, variant))
+    identity_plain_ms = cuda_ms(lambda: ops.fused_plane_gather_transform_images_plain(
+        k1_planes, None, None, variant), calls=10, windows=3)
+    log(f"K3 at M={m_base}, K={K_STATIC}, 128^2 (bound {static_ms['K3'][2]:.4f} ms; identity "
+        f"mode's {k3_identity_bound:.4f}): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in k3_ms.items())
+        + f"; identity mode on K1's planes (the 'auto' route's call) {identity_ms:.4f} ms, its "
+        f"plain version (stack and transform) {identity_plain_ms:.4f} ms")
 
     # K2, K1, K3 above 128 x 128: K2 and K1 on the resident-group kernel where
     # its slabs fit, else the strip kernel (K1: the strip K2 and K3's gather),
@@ -2410,20 +2599,23 @@ def main():
     require(stream_diff == 0, "K2's group kernel on two streams differs from a call alone")
     del real2048, alone, together
     planes256 = ops.fused_extract_channel_planes(base256)
-    planes1024 = ops.fused_extract_channel_planes(wf8)
     every_variant = torch.arange(19, device=dev) % 4
     k3_large_diff = {}
-    for name, args in {f"K={K_LARGE} 256^2": (planes256, bidx256, pidx256, var256),
-                       "odd K=37 256^2": (planes256, bidx256[:37], pidx256[:37], var256[:37]),
-                       "8x1024^2": (planes1024, *some(8, 19), every_variant)}.items():
-        got = ops.fused_plane_gather_transform(*args)
-        want = ops.fused_plane_gather_transform_plain(*args)
-        torch.cuda.synchronize()
-        k3_large_diff[name] = sum(int((a != b).sum()) for a, b in zip(got, want))
-    del got, want, planes1024
-    log("K3 above 128 values differing: "
+    for name, args in {f"K={K_LARGE} 256^2": lambda: (planes256, bidx256, pidx256, var256),
+                       "odd K=37 256^2": lambda: (planes256, bidx256[:37], pidx256[:37],
+                                                  var256[:37]),
+                       "8x1024^2": lambda: (ops.fused_extract_channel_planes(wf8), *some(8, 19),
+                                            every_variant),
+                       "1x2048^2": lambda: (ops.fused_extract_channel_planes(wide8), *some(1, 5),
+                                            every_variant[:5])}.items():
+        k3_large_diff[name] = k3_differing(*args())
+    for name, x in ragged_large.items():
+        k3_large_diff[f"{name} (variants 0, 1)"] = k3_rect_diff(
+            ops.fused_extract_channel_planes(x), *some(x.shape[0], 9),
+            torch.randint(0, 2, (9,), generator=g).to(dev))
+    log("K3 above 128 elements differing (planes, images, identity): "
         + ", ".join(f"{k} {v}" for k, v in k3_large_diff.items()) + " (must be 0)")
-    require(not any(k3_large_diff.values()), "K3 above 128 is not bit-equal")
+    require(not any(any(v) for v in k3_large_diff.values()), "K3 above 128 is not bit-equal")
 
     px256 = LARGE * LARGE
     distinct256 = int(torch.unique(bidx256).numel())
@@ -2486,6 +2678,9 @@ def main():
                         if call else "fits no slab"))
             require(once, f"{name}: not the {route[0]} route's kernels once a call")
         log(line)
+    k3_large_ms = k3_times(planes256, bidx256, pidx256, var256)
+    log(f"K3 at M={m256}, K={K_LARGE}, 256^2 (bound {large_ms['K3'][2]:.4f} ms): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in k3_large_ms.items()))
     phases["K1-K3"] = time.perf_counter() - t
 
     # -- static prep through create_dataset ------------------------------------
@@ -2559,25 +2754,32 @@ def main():
         require(ds_k.images.shape == (n_out, side, side, 3), f"{route}: image shape")
         require(same_keep and same_labels and err <= EXTRACT_TOL,
                 f"create_dataset route {route}: kernels disagree with the plain path")
-    require(prep_launches["auto"]["K1"] == 1, "the 'auto' route did not launch K1")
-    require(prep_launches["planes"]["K2"] == 1 and prep_launches["planes"]["K3"] == 1,
-            "the 'planes' route did not launch K2 and K3")
-    require(prep_launches["mad"]["K5"] == 1, "flags_mode 'mad' did not launch K5")
-    require(prep_launches["real auto"]["K1"] == 1, "real input: 'auto' did not launch K1")
-    require(prep_launches["real planes"]["K2"] == 1
-            and prep_launches["real planes"]["K3"] == 1,
-            "real input: 'planes' did not launch K2 and K3")
-    require(prep_launches["real materialised"]["K4"] == 1,
-            "real input: the materialised path did not launch K4")
-    require(prep_launches["auto 256"]["K1"] == 1, "patch 256: 'auto' did not launch K1")
-    require(prep_launches["planes 256"]["K2"] == 1 and prep_launches["planes 256"]["K3"] == 1,
-            "patch 256: 'planes' did not launch K2 and K3")
-    for side in (1024, 2048):
-        require(prep_launches[f"auto {side}"]["K1"] == 1,
-                f"patch {side}: 'auto' did not launch K1")
-        require(prep_launches[f"planes {side}"]["K2"] == 1
-                and prep_launches[f"planes {side}"]["K3"] == 1,
-                f"patch {side}: 'planes' did not launch K2 and K3")
+    # each route's launches, exactly: 'auto' K1 then K3's variant transform
+    # into the images, 'planes' K2 then K3's gather into them
+    for route in routes:
+        want = ({"K4": 1} if route == "real materialised"
+                else {"K2": 1, "K3": 1} if "planes" in route else {"K1": 1, "K3": 1})
+        if route == "mad":
+            want["K5"] = 1
+        got = {k: v for k, v in prep_launches[route].items() if v}
+        require(got == want, f"create_dataset route {route}: launches {got}, not {want}")
+    # no pass over image-sized tensors outside the kernels: the profiler
+    # sees the old epilogue's stack and where (a control), none on the routes
+    control = image_passes(lambda: transform_by_variant_nhwc(
+        torch.stack(k1_planes, dim=-1), variant), K_STATIC, PATCH)
+    require("stack" in control and "where" in control,
+            f"the profiler did not see the old epilogue's stack and where: {control}")
+    passes = {}
+    for route in ("auto", "planes", "auto 256", "planes 256"):
+        cfg = routes[route]
+        passes[route] = image_passes(lambda: Preprocessor(twf, flags=cfg["flags"]).create_dataset(
+            patch_size=cfg.get("patch", PATCH), seed=0, extract=cfg["extract"],
+            use_custom_flags=True, **cfg.get("size", static)),
+            K_STATIC if "size" not in cfg else K_LARGE, cfg.get("patch", PATCH))
+    log("image-sized aten stack, cat, where, copy_ on the routes (torch.profiler): "
+        + ", ".join(f"{k} {v}" for k, v in passes.items())
+        + f" (must be none; the old epilogue, as a control: {control})")
+    require(not any(passes.values()), "a static-prep route still passes over its images")
     phases["static prep"] = time.perf_counter() - t
 
     # -- the training main path ----------------------------------------------------
@@ -2626,8 +2828,8 @@ def main():
     log("mean loss per iteration: " + " ".join(f"{x:.4f}" for x in per_iter))
     require(all(bool(torch.isfinite(w).all()) for w in windows_losses),
             "a training loss is not finite")
-    require(train_launches["K1"] == iterations,
-            "K1 did not run once per iteration of the training path")
+    require(train_launches["K1"] == iterations and train_launches["K3"] == iterations,
+            "K1 and K3 did not run once each per iteration of the training path")
     require(last_loss < first_loss, "the loss did not fall over training")
 
     images, labels = dataset(it)
@@ -3701,7 +3903,7 @@ def main():
             ("K2", "fused_extract_channel_planes", "channel_planes.cu", 195,
              max(k2_err.values()), prep_launches["planes"]["K2"]),
             ("K3", "fused_plane_gather_transform", "plane_gather.cu", 414,
-             float(max(k3_diff.values())), prep_launches["planes"]["K3"])):
+             float(max(max(v) for v in k3_diff.values())), train_launches["K3"])):
         k_ms, p_ms, bound_ms, bound_by = static_ms[name]
         static_json.append(
             {"name": fn, "route": "cuda",
@@ -3726,9 +3928,14 @@ def main():
             ("fused_extract_channel_planes (above 128x128 where no slab fits: strip kernel)",
              strips_src, 195, max(wrap_err["K2"]["strips"].values()),
              prep_launches["planes 2048"]["K2"], large_ms["K2 (2,2048,2048)"]),
-            ("fused_plane_gather_transform (above 128: 32x32 squares)",
-             csrc + "plane_gather.cu", 414, float(max(k3_large_diff.values())),
-             sum(prep_launches[f"planes {side}"]["K3"] for side in (256, 1024, 2048)),
+            ("fused_plane_gather_transform_images (identity mode: K1's planes into the "
+             "images, the main path's launches)", csrc + "plane_gather.cu", 414,
+             float(max(v[2] for v in k3_diff.values() if len(v) == 3)), train_launches["K3"],
+             (identity_ms, identity_plain_ms, k3_identity_bound, "bytes")),
+            ("fused_plane_gather_transform (above 128)",
+             csrc + "plane_gather.cu", 414, float(max(max(v) for v in k3_large_diff.values())),
+             sum(prep_launches[f"{route} {side}"]["K3"] for side in (256, 1024, 2048)
+                 for route in ("auto", "planes")),
              large_ms["K3"]),
             ("fused_extract_channels (above 128x128: resident-group kernel)", groups_src, 455,
              max(k4_wrap_err["groups"].values()), raw_launches + k4_large_flag_launches,

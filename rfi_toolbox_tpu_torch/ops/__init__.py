@@ -9,7 +9,8 @@ launches its kernel for a CUDA tensor; the kernels are built by
   csrc/extract_strips.cu and csrc/plane_gather.cu)
 - K2 ``fused_extract_channel_planes`` (csrc/channel_planes.cu; above
   128 x 128 csrc/extract_groups.cu or csrc/extract_strips.cu)
-- K3 ``fused_plane_gather_transform`` (csrc/plane_gather.cu)
+- K3 ``fused_plane_gather_transform`` and, into channels-last images,
+  ``fused_plane_gather_transform_images`` (csrc/plane_gather.cu)
 - K4 ``fused_extract_channels`` (csrc/channel_planes.cu; above 128 x 128
   csrc/extract_groups.cu or csrc/extract_strips.cu, by
   ``fused_channels.extract_route``)
@@ -40,6 +41,8 @@ from .fused_channels import (
     fused_gather_extract,
     fused_gather_extract_plain,
     fused_plane_gather_transform,
+    fused_plane_gather_transform_images,
+    fused_plane_gather_transform_images_plain,
     fused_plane_gather_transform_plain,
 )
 from .fused_doubleconv import double_conv_gn_relu, double_conv_gn_relu_plain
@@ -54,6 +57,8 @@ __all__ = [
     "fused_gather_extract_plain",
     "fused_plane_gather_transform",
     "fused_plane_gather_transform_plain",
+    "fused_plane_gather_transform_images",
+    "fused_plane_gather_transform_images_plain",
     "mad_flag_patches",
     "mad_flag_patches_plain",
     "conv3x3",

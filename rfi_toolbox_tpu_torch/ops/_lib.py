@@ -48,10 +48,12 @@ _SIGNATURES = {
     # kind (0 K2, 1 K1, 2 K4), is_complex, h, w, out: CTAs an SM, clusters
     # on the card, dynamic shared memory bytes a CTA
     "rfi_channel_planes_occupancy": (_I, _I, _I, _I, _PI),
-    # grad3, log_amp, phase, base_idx, pidx, variant, grad_out, amp_out,
-    # phase_out, m, k, h, w, stream
+    # grad3, log_amp, phase, base_idx (or None), pidx (or None), variant, out,
+    # m, k, h, w, pixel stride (1 planes, 3 images), int64 indices, stream
     "rfi_fused_plane_gather_transform": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # TMA, pixel stride, out: CTAs an SM, CTAs on the card, shared bytes a CTA
+    "rfi_plane_gather_occupancy": (_I, _I, _PI),
     # kind (0 K2, 2 K4), in, out, amp, phase, keys, n, h, w, is_complex, stream
     "rfi_extract_strips": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # kind (0 K2, 1 K1, 2 K4), in, base_idx, pidx, out, amp, phase, scratch,

@@ -9,7 +9,9 @@ Counterparts of ``rfi_toolbox_tpu/ops/fused_channels.py``:
 - K1 :func:`fused_gather_extract`: the extraction fused with the static
   selection's gather;
 - K3 :func:`fused_plane_gather_transform` (``csrc/plane_gather.cu``): the
-  plane gather with the variant's flip/transpose.
+  plane gather with the variant's flip/transpose, as three planes or, by
+  :func:`fused_plane_gather_transform_images`, as channels-last images
+  (also the variant transform alone of K1's planes).
 
 Each takes patches of any H x W; :func:`extract_route` picks K4's, K2's
 and K1's kernel by the shape alone:
@@ -32,17 +34,19 @@ and K1's kernel by the shape alone:
   tiles, a patch's min and max combined by atomics), K1 as the strip K2
   into a scratch of planes, then K3's gather.
 
-K3 takes square tiles up to ``GATHER_MAX_SIDE`` (128) in one block each,
-larger ones in 32 x 32 squares.
+K3 is one kernel for every tile size: a CTA owns squares of 32 x 32 of the
+selected base patches, reads each once (TMA) and writes it to every output
+that selects it.
 
 Each wrapper runs its plain PyTorch version (``*_plain``) for a tensor on
 the CPU, and for a CUDA tensor launches its kernel or raises; nothing
-falls back. ``<wrapper>.launches`` counts each kernel's launches. Index
-ranges are checked on the card without a host sync
-(``torch._assert_async``): a bad index stops the process at its next
-synchronisation. Torch models of the kernels' passes, which hold their
-arithmetic against the plain versions on the CPU, live with the tests
-(``tests/torch_kernel_models.py``).
+falls back. ``<wrapper>.launches`` counts each kernel's launches (K3's
+both wrappers in ``fused_plane_gather_transform.launches``). Index
+ranges are checked on the card without a host sync (K1's by
+``torch._assert_async``, K3's inside its kernel, which traps): a bad
+index stops the process at its next synchronisation. Torch models of the
+kernels' passes, which hold their arithmetic against the plain versions
+on the CPU, live with the tests (``tests/torch_kernel_models.py``).
 """
 
 import ctypes
@@ -62,19 +66,17 @@ __all__ = [
     "fused_gather_extract_plain",
     "fused_plane_gather_transform",
     "fused_plane_gather_transform_plain",
+    "fused_plane_gather_transform_images",
+    "fused_plane_gather_transform_images_plain",
     "extract_route",
     "group_rows",
     "CLUSTER_MAX_PIXELS",
-    "GATHER_MAX_SIDE",
     "GROUP_SMEM_BYTES",
 ]
 
 # patches up to this many pixels take the cluster kernel (kMaxPixels in
 # csrc/channel_planes.cu)
 CLUSTER_MAX_PIXELS = 128 * 128
-# K3's square tiles up to this side take one block each, others 32 x 32
-# squares (kMaxSide in csrc/plane_gather.cu)
-GATHER_MAX_SIDE = 128
 # the shared memory of a slab of the resident-group kernel with its two halo
 # rows, at most (kSmemBudget in csrc/extract_groups.cu)
 GROUP_SMEM_BYTES = 54 * 1024
@@ -339,9 +341,8 @@ def fused_gather_extract(patches, base_idx, pidx):
     k = base_idx.shape[0]
     base_idx = _check_index(base_idx, "base_idx", k, m, patches.device)
     pidx = _check_index(pidx, "pidx", k, 3, patches.device)
-    grad = torch.empty((k, h, w), dtype=torch.float32, device=patches.device)
-    amp = torch.empty_like(grad)
-    phase = torch.empty_like(grad)
+    out = torch.empty((3, k, h, w), dtype=torch.float32, device=patches.device)
+    grad, amp, phase = out
     if k == 0:
         return grad, amp, phase
     route, rows = _route(_K1, patches)
@@ -350,7 +351,7 @@ def fused_gather_extract(patches, base_idx, pidx):
     elif route == "strips":
         planes = _planes_of(patches)
         variant = torch.zeros(k, dtype=torch.int32, device=patches.device)
-        _gather_transform(planes, base_idx, pidx, variant, (grad, amp, phase))
+        _gather_transform(planes, base_idx, pidx, variant, out, 1)
     else:
         rc = _lib.load().rfi_fused_gather_extract(
             patches.data_ptr(), base_idx.data_ptr(), pidx.data_ptr(),
@@ -387,53 +388,115 @@ def fused_plane_gather_transform(planes, base_idx, pidx, variant):
 
     Returns:
         ``(grad, log_amp, phase)``, each (K, h, h) float32 in the
-        variant's orientation.
+        variant's orientation (contiguous views of one (3, K, h, h)
+        buffer).
 
     CPU tensors go through the plain version. On the card the planes
-    must be contiguous float32 and the indices on the same card; tiles up
-    to ``GATHER_MAX_SIDE`` take one block each, larger ones 32 x 32
-    squares.
+    must be contiguous float32 and the indices int32 or int64 on the same
+    card; their ranges are checked in the kernel, which traps on a bad
+    index (the process stops at its next synchronisation).
     """
-    grad3, log_amp, phase = planes
-    if grad3.device.type == "cpu":
+    if planes[0].device.type == "cpu":
         return fused_plane_gather_transform_plain(planes, base_idx, pidx, variant)
+    m, h, w = _check_gather_planes(planes, 3)
+    k = variant.shape[0]
+    idx = _gather_indices(k, planes[1].device, base_idx, pidx, variant)
+    out = torch.empty((3, k, h, w), dtype=torch.float32, device=planes[1].device)
+    if k:
+        _gather_transform(planes, *idx, out, 1)
+        fused_plane_gather_transform.launches += 1
+    return out[0], out[1], out[2]
+
+
+fused_plane_gather_transform.launches = 0
+
+
+def fused_plane_gather_transform_images_plain(planes, base_idx, pidx, variant):
+    """Plain PyTorch version of :func:`fused_plane_gather_transform_images`,
+    on any device."""
+    from ..preprocess.static_prep import transform_by_variant_nhwc
+
+    if base_idx is None:
+        return transform_by_variant_nhwc(torch.stack(planes, dim=-1), variant)
+    return torch.stack(fused_plane_gather_transform_plain(planes, base_idx, pidx, variant),
+                       dim=-1)
+
+
+def fused_plane_gather_transform_images(planes, base_idx, pidx, variant):
+    """K3 into channels-last images: :func:`fused_plane_gather_transform`'s
+    three planes written as one (K, h, h, 3) float32 tensor in the same
+    launch (no stack). With ``base_idx`` and ``pidx`` None, ``planes`` are
+    the three (K, h, h) planes of K outputs (K1's), and output i is their
+    patch i in ``variant[i]`` (the variant transform alone).
+
+    CPU tensors go through the plain version (a stack, and in the second
+    form :func:`..preprocess.static_prep.transform_by_variant_nhwc`). On
+    the card as :func:`fused_plane_gather_transform`; the launch counts in
+    ``fused_plane_gather_transform.launches``.
+    """
+    if planes[0].device.type == "cpu":
+        return fused_plane_gather_transform_images_plain(planes, base_idx, pidx, variant)
+    if (base_idx is None) != (pidx is None):
+        raise ValueError("base_idx and pidx are both given or both None")
+    if base_idx is None:
+        m, h, w = _check_gather_planes(planes, 0)
+        if variant.shape[:1] != (m,):
+            raise ValueError(f"variant must be ({m},), got {tuple(variant.shape)}")
+    else:
+        m, h, w = _check_gather_planes(planes, 3)
+    k = variant.shape[0]
+    idx = _gather_indices(k, planes[1].device, base_idx, pidx, variant)
+    out = torch.empty((k, h, w, 3), dtype=torch.float32, device=planes[1].device)
+    if k:
+        _gather_transform(planes, *idx, out, 3)
+        fused_plane_gather_transform.launches += 1
+    return out
+
+
+def _check_gather_planes(planes, n_grad):
+    """K3's planes on the card: grad3 (``n_grad``, M, h, w), or (M, h, w)
+    where ``n_grad`` is 0, log_amp and phase (M, h, w), contiguous float32
+    on one device, h == w. Returns (M, h, w)."""
+    grad3, log_amp, phase = planes
+    _check_patches(log_amp, (torch.float32,))
     m, h, w = log_amp.shape
     if h != w:
         raise ValueError("the variant transform requires square patches")
-    for name, x, shape in (("grad3", grad3, (3, m, h, w)),
-                           ("log_amp", log_amp, (m, h, w)),
-                           ("phase", phase, (m, h, w))):
+    grad_shape = (n_grad, m, h, w) if n_grad else (m, h, w)
+    for name, x, shape in (("grad", grad3, grad_shape), ("phase", phase, (m, h, w))):
         if x.device != log_amp.device or x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32 on {log_amp.device}")
         if tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {shape}, got "
-                             f"{tuple(x.shape)}")
-    _check_patches(log_amp, (torch.float32,))
-    k = base_idx.shape[0]
-    base_idx = _check_index(base_idx, "base_idx", k, m, log_amp.device)
-    pidx = _check_index(pidx, "pidx", k, 3, log_amp.device)
-    variant = _check_index(variant, "variant", k, 4, log_amp.device)
-    outs = tuple(torch.empty((k, h, w), dtype=torch.float32,
-                             device=log_amp.device) for _ in range(3))
-    if k == 0 or m == 0:
-        return outs
-    _gather_transform(planes, base_idx, pidx, variant, outs)
-    fused_plane_gather_transform.launches += 1
-    return outs
+            raise ValueError(f"{name} must be contiguous {shape}, got {tuple(x.shape)}")
+    return m, h, w
 
 
-def _gather_transform(planes, base_idx, pidx, variant, outs):
-    """Launch K3 on checked planes (M, h, w), int32 indices and outputs
-    (K, h, w); a transposing variant needs h == w."""
+def _gather_indices(k, device, *indices):
+    """K3's (K,) int32 or int64 indices on ``device`` (None kept), as one
+    dtype and contiguous. Their ranges are checked in the kernel."""
+    given = [x for x in indices if x is not None]
+    for x in given:
+        if x.device != device:
+            raise ValueError(f"an index is on {x.device}, the planes on {device}")
+        if x.dtype not in (torch.int32, torch.int64) or tuple(x.shape) != (k,):
+            raise ValueError(f"indices must be ({k},) int32 or int64, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    dtype = torch.int64 if any(x.dtype == torch.int64 for x in given) else torch.int32
+    return [None if x is None else x.to(dtype).contiguous() for x in indices]
+
+
+def _gather_transform(planes, base_idx, pidx, variant, out, stride):
+    """Launch K3 on checked planes (M, h, w) and indices of one dtype into
+    ``out``: (3, K, h, w) planes (``stride`` 1) or (K, h, w, 3) images (3);
+    ``base_idx`` and ``pidx`` None for the variant transform of K = M
+    patches. A transposing variant needs h == w (the kernel traps)."""
     grad3, log_amp, phase = planes
     m, h, w = log_amp.shape
     rc = _lib.load().rfi_fused_plane_gather_transform(
         grad3.data_ptr(), log_amp.data_ptr(), phase.data_ptr(),
-        base_idx.data_ptr(), pidx.data_ptr(), variant.data_ptr(),
-        *(o.data_ptr() for o in outs), m, base_idx.shape[0], h, w,
+        None if base_idx is None else base_idx.data_ptr(),
+        None if pidx is None else pidx.data_ptr(), variant.data_ptr(), out.data_ptr(),
+        m, variant.shape[0], h, w, stride, int(variant.dtype == torch.int64),
         _lib.stream_of(log_amp),
     )
     _lib.check(rc, "fused_plane_gather_transform")
-
-
-fused_plane_gather_transform.launches = 0

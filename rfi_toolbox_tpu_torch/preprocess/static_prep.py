@@ -25,11 +25,12 @@ materialised ``static_num_patches`` path's for the same selection.
 Extraction routes (``extract``):
 
 - ``'gathered'``: extract the K transformed patches (K4 with kernels);
-- ``'base'``: with kernels, K1 (gather + extraction in one pass) then the
-  variant transform of the three planes; without, the plain planes of
-  the M base patches and a gather;
+- ``'base'``: with kernels, K1 (gather + extraction in one pass) then
+  K3's variant transform of its three planes into the images; without,
+  the plain planes of the M base patches, a gather, a stack and the
+  transform;
 - ``'planes'``: with kernels, K2 on the M base patches, then K3 (plane
-  gather + transform); without, as ``'base'``;
+  gather + transform, written as the images); without, as ``'base'``;
 - ``'auto'``: ``'base'`` when rotations > 1 and K exceeds the base-patch
   count, else ``'gathered'``.
 
@@ -238,15 +239,14 @@ class StaticPrep:
         if extract_base:
             if kernels and self.extract == "planes":
                 planes = ops.fused_extract_channel_planes(base.contiguous())
-                g, lp, ph = ops.fused_plane_gather_transform(
+                images = ops.fused_plane_gather_transform_images(
                     planes, base_idx, pidx, v)
-                images = torch.stack([g, lp, ph], dim=-1)
-                return images, labels, patches, flag_patches
-            if kernels:
+            elif kernels:
                 planes = ops.fused_gather_extract(base.contiguous(), base_idx, pidx)
+                images = ops.fused_plane_gather_transform_images(planes, None, None, v)
             else:
                 planes = ops.fused_gather_extract_plain(base, base_idx, pidx)
-            images = transform_by_variant_nhwc(torch.stack(planes, dim=-1), v)
+                images = transform_by_variant_nhwc(torch.stack(planes, dim=-1), v)
         else:
             src = patches if patches is not None else transform_by_variant(
                 base[base_idx], v)

@@ -8,8 +8,10 @@ channels interleaved as (N, H, W, 3)) against the plain versions and the
 JAX package, on the CPU; and the float32 square root that ``magnitude``
 takes on the card. Above 128 x 128: models of the strip kernel's two passes,
 of the resident-group kernel's slabs (``fused_extract_groups_model``: K4, K2
-and K1 fused, held also bit-equal to the strip model) and of K3's squares,
-and the shape-only routing (``extract_route``) between them.
+and K1 fused, held also bit-equal to the strip model), and the shape-only
+routing (``extract_route``) between them. K3 (``plane_gather_model``): its
+squares, scan, lists, swizzle, lanes and pixel stride, bit-equal to the plain
+version in both layouts and in identity mode.
 
 The JAX kernels run in Pallas interpret mode, as tests/test_ops.py runs
 them, on complex input without NaN (they take no min over NaN and treat
@@ -27,6 +29,7 @@ from rfi_toolbox_tpu.ops import fused_channels as JK
 from rfi_toolbox_tpu.preprocess import pipeline as JP
 from rfi_toolbox_tpu_torch.ops import fused_channels as F
 from rfi_toolbox_tpu_torch.preprocess import pipeline as P
+from rfi_toolbox_tpu_torch.preprocess import static_prep as S
 
 import torch_kernel_models as M
 
@@ -210,8 +213,7 @@ def test_magnitude_with_float32_root_bit_equal():
     np.testing.assert_array_equal(kernel[~nan].view(np.uint32), plain[~nan].view(np.uint32))
 
 
-# Patches above 128 x 128 (the strip kernel, csrc/extract_strips.cu) and
-# K3's 32 x 32 squares above 128 (csrc/plane_gather.cu).
+# Patches above 128 x 128 (the strip kernel, csrc/extract_strips.cu).
 LARGE = {
     "129x130": (lambda rng: _complex(rng, 2, 129, 130), "pipeline"),
     "256x256": (lambda rng: _complex(rng, 2, 256, 256), "kernel"),
@@ -283,28 +285,113 @@ def test_order_keys_preserve_order():
     np.testing.assert_array_equal(back.view(np.uint32), v.view(np.uint32))
 
 
-@pytest.mark.parametrize("h, w", [(160, 160), (33, 33), (69, 69), (129, 140), (40, 200)])
-def test_gather_squares_model(h, w):
-    """K3's 32 x 32 squares, bit-equal to the plain version: all four
-    variants on square tiles (ragged last squares), variants 0 and 1 on
-    rectangular ones (K1 above 128 x 128 gathers with variant 0)."""
+# K3 (csrc/plane_gather.cu): (h, w) -> whether the 16-byte path takes it
+# (w % 4 == 0) and its squares' ragged edge. Rectangular tiles take
+# variants 0 and 1 only (K1's strip route gathers with variant 0).
+K3_SHAPES = {"16x16": (16, 16), "33x33": (33, 33), "36x36": (36, 36), "69x69": (69, 69),
+             "100x100": (100, 100), "129x129": (129, 129), "160x160": (160, 160),
+             "129x140": (129, 140), "40x200": (40, 200)}
+
+
+def _k3_want(planes, base_idx, pidx, variant, stride):
+    """The plain K3 in the layout of ``stride``; on rectangular tiles the
+    row flip of the gathered planes."""
+    if planes[1].shape[1] == planes[1].shape[2]:
+        got = F.fused_plane_gather_transform_plain(planes, base_idx, pidx, variant)
+    else:
+        flip = (variant == 1)[:, None, None]
+        got = tuple(torch.where(flip, g.flip(-2), g)
+                    for g in F._gather_planes(planes, base_idx, pidx))
+    return torch.stack(got, 0 if stride == 1 else -1)
+
+
+def _bit_equal(got, want):
+    assert got.shape == want.shape
+    assert np.array_equal(got.numpy().view(np.uint32), want.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("stride", [1, 3], ids=["planes", "images"])
+@pytest.mark.parametrize("shape", list(K3_SHAPES))
+def test_plane_gather_model(shape, stride):
+    """K3's model, bit-equal to the plain version: all four variants on
+    square tiles (ragged last squares, the 16-byte and the per-pixel
+    path), variants 0 and 1 on rectangular ones; NaN pixels kept."""
+    h, w = K3_SHAPES[shape]
     rng = np.random.default_rng(18)
-    planes = F.fused_extract_channel_planes_plain(_t(_complex(rng, 3, h, w)))
-    k = 9
+    planes = F.fused_extract_channel_planes_plain(_t(_with_nan(rng, 3, h, w)))
+    k = 11
     base_idx = _t(rng.integers(0, 3, k))
     pidx = _t(rng.integers(0, 3, k))
     variant = _t(rng.integers(0, 4 if h == w else 2, k))
-    if h == w:
-        variant[:4] = torch.arange(4)
-    got = M.fused_plane_gather_transform_model(planes, base_idx, pidx, variant)
-    if h == w:
-        want = F.fused_plane_gather_transform_plain(planes, base_idx, pidx, variant)
-    else:  # the flip of the gathered planes
-        gathered = F._gather_planes(planes, base_idx, pidx)
-        flip = ((variant == 1)[:, None, None])
-        want = tuple(torch.where(flip, g.flip(-2), g) for g in gathered)
-    for g, wnt in zip(got, want):
-        assert torch.equal(g, wnt)
+    variant[:4 if h == w else 2] = torch.arange(4 if h == w else 2)
+    got = M.plane_gather_model(planes, base_idx, pidx, variant, stride)
+    _bit_equal(got, _k3_want(planes, base_idx, pidx, variant, stride))
+
+
+@pytest.mark.parametrize("stride", [1, 3], ids=["planes", "images"])
+@pytest.mark.parametrize("case", ["repeats, unselected", "K=1, M=1", "one base 150 times",
+                                  "a unit a CTA"])
+def test_plane_gather_model_index_patterns(case, stride):
+    """K3's model on the indices' patterns: repeated (base, plane) pairs
+    with base patches nothing selects and pidx independent of the variant,
+    one output of one base patch, a patch selected 150 times (three lists
+    of ``LIST_CAP``, listed again for each square), and as many CTAs as
+    units (ranges that start inside a patch)."""
+    rng = np.random.default_rng(19)
+    m, side, grid = 6, 36, 5
+    if case == "repeats, unselected":
+        base_idx, pidx = [4, 4, 1, 4, 1, 4, 4], [2, 2, 0, 2, 1, 0, 2]
+        variant = [3, 3, 0, 1, 2, 2, 0]
+    elif case == "K=1, M=1":
+        m, base_idx, pidx, variant = 1, [0], [1], [3]
+    elif case == "one base 150 times":
+        base_idx = rng.permutation([2] * 150 + [0, 5])
+        pidx, variant = rng.integers(0, 3, 152), rng.integers(0, 4, 152)
+    else:
+        side, grid = 69, 10**6
+        base_idx, pidx, variant = rng.integers(0, m, 9), rng.integers(0, 3, 9), np.arange(9) % 4
+    planes = F.fused_extract_channel_planes_plain(_t(_complex(rng, m, side, side)))
+    idx = [_t(np.asarray(x, np.int64)) for x in (base_idx, pidx, variant)]
+    got = M.plane_gather_model(planes, *idx, stride, grid=grid)
+    _bit_equal(got, _k3_want(planes, *idx, stride))
+
+
+@pytest.mark.parametrize("stride", [1, 3], ids=["planes", "images"])
+@pytest.mark.parametrize("side", [16, 33, 100])
+def test_plane_gather_model_identity(side, stride):
+    """K3's identity mode on K1's planes (output i is patch i in its
+    variant), bit-equal to the stack and transform it replaces on the
+    'auto' route; the images wrapper's plain version the same on the
+    CPU."""
+    rng = np.random.default_rng(20)
+    x = _t(_complex(rng, 4, side, side))
+    k = 13
+    base_idx, pidx = _t(rng.integers(0, 4, k)), _t(rng.integers(0, 3, k))
+    variant = _t(np.arange(k) % 4)
+    planes = F.fused_gather_extract_plain(x, base_idx, pidx)
+    got = M.plane_gather_model(planes, None, None, variant, stride)
+    want = S.transform_by_variant_nhwc(torch.stack(planes, -1), variant)
+    if stride == 1:
+        want = want.permute(3, 0, 1, 2)
+    _bit_equal(got, want.contiguous())
+    _bit_equal(F.fused_plane_gather_transform_images(planes, None, None, variant),
+               S.transform_by_variant_nhwc(torch.stack(planes, -1), variant))
+
+
+@pytest.mark.parametrize("bad", ["base_idx", "pidx", "variant", "transpose of 36x40"])
+def test_plane_gather_model_traps_on_bad_indices(bad):
+    """Where the kernel traps: a base_idx, pidx or variant out of range, a
+    transposing variant on a rectangular tile."""
+    rng = np.random.default_rng(21)
+    h, w = (36, 40) if bad.startswith("transpose") else (36, 36)
+    planes = F.fused_extract_channel_planes_plain(_t(_complex(rng, 3, h, w)))
+    idx = {"base_idx": [0, 2, 1], "pidx": [0, 1, 2], "variant": [0, 1, 1]}
+    if bad in idx:
+        idx[bad][1] = {"base_idx": 3, "pidx": -1, "variant": 4}[bad]
+    else:
+        idx["variant"][2] = 2
+    with pytest.raises(M.IndexTrap):
+        M.plane_gather_model(planes, *(_t(np.asarray(x)) for x in idx.values()), 3)
 
 
 # Patches above 128 x 128 on the resident-group kernel (csrc/extract_groups.cu):

@@ -14,8 +14,8 @@ So the deterministic ``kept`` indices are compared bit for bit, the JAX
 whole-path outputs are compared row by row in the order of ``keep``.
 
 Tolerances: images 2e-5 (the JAX package's own extraction bound,
-``ops/fused_channels.py``); labels, K3's output and the selections
-bit-equal.
+``ops/fused_channels.py``); labels, K3's output (planes and images) and the
+selections bit-equal.
 """
 
 import jax
@@ -110,8 +110,10 @@ def test_gather_extract_matches_jax_kernel(plain):
     assert ops.fused_gather_extract.launches == launches  # CPU: no kernel
 
 
-@pytest.mark.parametrize("plain", [True, False], ids=["plain", "wrapper"])
+@pytest.mark.parametrize("plain", [True, False, "images"], ids=["plain", "wrapper", "images"])
 def test_plane_gather_transform_bit_equal_to_jax_kernel(plain):
+    """K3's plain version and wrapper, and the images wrapper's plain
+    version against JAX's planes stacked to NHWC."""
     rng = np.random.default_rng(3)
     x = _patches(rng, n=5)
     k = 19
@@ -120,12 +122,15 @@ def test_plane_gather_transform_bit_equal_to_jax_kernel(plain):
     v[:4] = [0, 1, 2, 3]
     pidx = JS._VARIANT_GRAD_PLANE[v]
     planes = [np.asarray(a) for a in JP.extract_channel_planes(jnp.asarray(x))]
-    fn = (ops.fused_plane_gather_transform_plain if plain
-          else ops.fused_plane_gather_transform)
+    fn = {True: ops.fused_plane_gather_transform_plain,
+          False: ops.fused_plane_gather_transform,
+          "images": ops.fused_plane_gather_transform_images_plain}[plain]
     got = fn(tuple(_t(a) for a in planes), _t(base_idx), _t(pidx), _t(v))
     want = JK.fused_plane_gather_transform(
         tuple(jnp.asarray(a) for a in planes), jnp.asarray(base_idx),
         jnp.asarray(pidx), jnp.asarray(v), interpret=True)
+    if plain == "images":
+        got, want = (got,), (np.stack([np.asarray(w) for w in want], -1),)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
@@ -386,8 +391,8 @@ def test_create_dataset_real_input_matches_jax():
 
 
 @pytest.mark.parametrize("route, wrappers", [
-    ("auto", ["fused_gather_extract"]),
-    ("planes", ["fused_extract_channel_planes", "fused_plane_gather_transform"]),
+    ("auto", ["fused_gather_extract", "fused_plane_gather_transform_images"]),
+    ("planes", ["fused_extract_channel_planes", "fused_plane_gather_transform_images"]),
     ("gathered", ["fused_extract_channels"]),
     ("materialised", ["fused_extract_channels"]),
 ])

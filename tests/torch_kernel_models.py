@@ -14,7 +14,11 @@ plain versions and the JAX package where the kernels themselves cannot run.
   above 128 x 128: slabs of whole rows with their halo rows, each slab's
   min and max combined into the patch's as integer keys (a min as the
   key's complement), K1's outputs written from each selected base patch;
-- K3's 32 x 32 squares (``csrc/plane_gather.cu``).
+- K3 (``csrc/plane_gather.cu``): each CTA's range of (base patch, 32 x 32
+  square) units, the scan of ``base_idx`` for a patch's outputs with its
+  ring of list slots, the squares in the 128-byte swizzle, the lanes of its
+  16-byte path (4 x 4 transposes by shuffles) and of its per-pixel path,
+  the mirrored output squares and the pixel stride.
 
 No path of the package runs these.
 """
@@ -22,13 +26,14 @@ No path of the package runs these.
 import numpy as np
 import torch
 
-from rfi_toolbox_tpu_torch.ops.fused_channels import _gather_planes
 from rfi_toolbox_tpu_torch.preprocess import pipeline as P
 
 CLUSTER = 4  # CTAs that split a patch's rows in K1, K2, K4 (csrc/channel_planes.cu)
 LIST_CAP = 64  # K1's outputs of one base patch listed at a time (kListCap in csrc/)
 STRIP_ROWS, STRIP_COLS = 16, 128  # a strip kernel tile (kTileRows, kTileCols)
-GATHER_TILE = 32  # side of K3's squares above GATHER_MAX_SIDE (kTile)
+GATHER_SIDE = 32  # K3's squares (kSide in csrc/plane_gather.cu)
+GATHER_THREADS = 256  # its CTA (kThreads)
+GATHER_STAGES = 2  # its squares in flight (kStages)
 
 # The kernels' folded affines (csrc/channel_planes.cu), in float32 as nvcc
 # folds the constant expressions.
@@ -354,37 +359,215 @@ def fused_extract_groups_model(patches, kind, rows, base_idx=None, pidx=None):
     return outs
 
 
-def fused_plane_gather_transform_model(planes, base_idx, pidx, variant):
-    """Torch model of K3's 32 x 32 squares (csrc/plane_gather.cu, tiles
-    above ``GATHER_MAX_SIDE``, or rectangular ones with variants 0 and
-    1), on any device: each square of each output either copies the rows
-    it needs (variants 0, 1) or stages the source square that lands on it
-    in a 32 x 33 tile (variants 2, 3; square tiles). A value no square
-    writes stays NaN."""
-    gathered = _gather_planes(planes, base_idx, pidx)
-    k, h, w = gathered[1].shape
-    dev = gathered[1].device
-    t = GATHER_TILE
-    outs = tuple(torch.full((k, h, w), float("nan"), device=dev) for _ in range(3))
-    for j in range(k):
-        v = int(variant[j])
-        flip = v in (1, 3)
-        for src, out in zip((x[j] for x in gathered), (o[j] for o in outs)):
-            for r0 in range(0, h, t):
-                for c0 in range(0, w, t):
-                    r = torch.arange(r0, min(h, r0 + t), device=dev)
-                    c = torch.arange(c0, min(w, c0 + t), device=dev)
+class IndexTrap(Exception):
+    """A bad index, where the K3 kernel traps."""
+
+
+def _swizzled(row, col):
+    """K3's float offset of (row, col) in a square (``swizzled``): 128-byte
+    rows, the 16-byte chunk c of row r at c ^ (r % 8)."""
+    return row * GATHER_SIDE + (((col >> 2) ^ (row & 7)) << 2) + (col & 3)
+
+
+def _transpose4(a):
+    """``transpose4`` over a warp's (32, 4) values: in round s lane l sends
+    its element (l + s) % 4 and takes lane (l - s) % 4's into slot
+    (l - s) % 4."""
+    lane = np.arange(32)
+    l, group = lane & 3, lane & ~3
+    b = a.copy()
+    for s in range(1, 4):
+        sent = a[lane, (l + s) & 3]
+        b[lane, (l - s) & 3] = sent[group | ((l - s) & 3)]
+    return b
+
+
+def _gather_lanes(sqs, v, r0, c0, nr, nc, h, w, stride, out0, write):
+    """K3's 16-byte path for one output of a square: each warp's 4 output
+    rows rho of 32 pixels, a lane's 4 pixels t of one (variants 0, 1 a
+    chunk of square row 4 warp + rho; 2, 3 of row ``lane`` transposed by
+    :func:`_transpose4`); stride 1 stores them, stride 3 interleaves the
+    warp's rows in its staging rows and stores each row's 24 chunks."""
+    lane = np.arange(32)
+    flip = v in (1, 3)
+    rows, n_px, lead, start = (nr, nc, r0, c0) if v < 2 else (nc, nr, c0, r0)
+    for warp in range(GATHER_THREADS // 32):
+        if v < 2:
+            rho, t = lane >> 3, lane & 7
+            vals = np.stack([sq[_swizzled(4 * warp + rho, 4 * t)[:, None] + np.arange(4)]
+                             for sq in sqs])  # (3, 32 lanes, 4)
+        else:
+            rho, t = lane & 3, lane >> 2
+            vals = np.stack([_transpose4(sq[_swizzled(lane, 4 * warp)[:, None] + np.arange(4)])
+                             for sq in sqs])
+        q_row = 4 * warp + np.arange(4)
+        row_px = np.where(q_row < rows,
+                          out0 + np.where(flip, h - 1 - lead - q_row, lead + q_row) * w + start,
+                          -1)
+        if stride == 1:
+            ok = (row_px[rho] >= 0) & (4 * t < n_px)
+            for j in range(4):
+                write((row_px[rho] + 4 * t + j)[ok], vals[:, ok, j])
+            continue
+        staged = np.full((4, 96), np.nan, np.float32)
+        for j in range(4):
+            for c in range(3):
+                staged[rho, 12 * t + 3 * j + c] = vals[c, :, j]
+        staged = staged.reshape(-1)
+        for j in range(3):
+            f = 32 * j + lane
+            rr, q = f // 24, f % 24
+            ok = (row_px[rr] >= 0) & (4 * q < 3 * n_px)
+            for e in range(4):  # float e of chunk q: pixel (4q + e) // 3, plane (4q + e) % 3
+                at = 3 * row_px[rr][ok] + 4 * q[ok] + e
+                out_flat = staged[4 * f[ok] + e]
+                px, c = at // 3, at % 3
+                write.raw(px, c, out_flat)
+
+
+def plane_gather_model(planes, base_idx, pidx, variant, stride, grid=5, fast=None):
+    """Torch model of K3 (csrc/plane_gather.cu) on the CPU: the units (base
+    patch, 32 x 32 square), base-major, in ``grid`` contiguous ranges; a
+    CTA's scan of ``base_idx`` for a patch's outputs (``LIST_CAP`` listed
+    at a time, a ring of list slots), its squares loaded into a ring of
+    ``GATHER_STAGES`` stages in the
+    128-byte swizzle (TMA boxes where ``fast``, zeros past the rows'
+    end; else per-thread loads), and every selecting output's square at
+    its mirrored position. ``fast`` (default: w % 4 == 0) takes the 16-byte
+    lanes: variants 0 and 1 a chunk of a row a lane, 2 and 3 a chunk of a
+    row transposed by :func:`_transpose4`; else pixel by pixel.
+    ``base_idx`` and ``pidx`` None: identity mode (grad (K, h, w), output
+    i is patch i). Returns the output buffer, (3, K, h, w) for ``stride``
+    1 and (K, h, w, 3) for 3, NaN where nothing was written; raises
+    :class:`IndexTrap` where the kernel traps."""
+    grad, amp, phase = (np.ascontiguousarray(x.numpy(), dtype=np.float32) for x in planes)
+    variant = np.asarray(variant, dtype=np.int64)
+    identity = base_idx is None
+    if not identity:
+        base_idx, pidx = np.asarray(base_idx, np.int64), np.asarray(pidx, np.int64)
+    m, h, w = amp.shape
+    k = len(variant)
+    side = GATHER_SIDE
+    fast = w % 4 == 0 if fast is None else fast
+    rows_of = {"amp": amp.reshape(-1, w), "phase": phase.reshape(-1, w),
+               "grad": grad.reshape(-1, w)}
+    sq_cols = -(-w // side)
+    squares = sq_cols * -(-h // side)
+    units = m * squares
+    out = np.full(3 * k * h * w, np.nan, np.float32)
+    plane_step = 1 if stride == 3 else k * h * w
+    rr, cc = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    offsets = _swizzled(rr, cc)
+
+    def write(px, vals):  # vals (3, n): the three planes' values at pixels px
+        for c in range(3):
+            out[stride * px + c * plane_step] = vals[c]
+
+    def raw(px, c, vals):  # plane c of pixels px
+        out[stride * px + c * plane_step] = vals
+    write.raw = raw
+
+    def collect(b, first):
+        if identity:
+            v = int(variant[b])
+            if not 0 <= v <= 3 or (v >= 2 and h != w):
+                raise IndexTrap(f"variant {v}")
+            return {"first": 0, "total": 1, "mask": 1, "list": [(b, 0, v)]}
+        if ((base_idx < 0) | (base_idx >= m)).any():
+            raise IndexTrap("base_idx")
+        hits = np.flatnonzero(base_idx == b)
+        for e in hits:
+            pl, v = int(pidx[e]), int(variant[e])
+            if not (0 <= pl <= 2 and 0 <= v <= 3) or (v >= 2 and h != w):
+                raise IndexTrap(f"pidx {pl}, variant {v}")
+        mask = 0
+        for e in hits:
+            mask |= 1 << int(pidx[e])
+        return {"first": first, "total": len(hits), "mask": mask,
+                "list": [(int(e), int(pidx[e]), int(variant[e]))
+                         for e in hits[first:first + LIST_CAP]]}
+
+    def where(u):
+        b, sq = divmod(u, squares)
+        return b, (sq // sq_cols) * side, (sq % sq_cols) * side
+
+    def issue(u, slot, stage):
+        b, r0, c0 = where(u)
+        stage[:] = np.nan  # what the stage held before
+        for s, (name, plane) in enumerate([("amp", 0), ("phase", 0), ("grad", 0),
+                                           ("grad", 1), ("grad", 2)]):
+            if s >= 2 and not slot["mask"] >> (s - 2) & 1:
+                continue
+            y = (plane * m + b) * h + r0
+            if fast:  # a TMA box: the rows past the patch are the next patch's
+                src = rows_of[name][y:y + side, c0:c0 + side]
+            else:
+                src = rows_of[name][y:y + min(side, h - r0), c0:c0 + side]
+            box = np.zeros((side, side), np.float32)
+            box[:src.shape[0], :src.shape[1]] = src
+            stage[s, offsets] = box
+
+    def store(u, slot, stage):
+        b, r0, c0 = where(u)
+        nr, nc = min(side, h - r0), min(side, w - c0)
+        for first in range(0, slot["total"], LIST_CAP):
+            if slot["first"] != first:
+                slot.update(collect(b, first))
+            for o, pl, v in slot["list"]:
+                sqs = stage[[2 + pl, 0, 1]]  # grad, amp, phase
+                out0 = o * h * w
+                if fast:
+                    _gather_lanes(sqs, v, r0, c0, nr, nc, h, w, stride, out0, write)
+                else:
+                    e = np.arange(nr * nc)
                     if v < 2:
-                        out[r[:, None], c] = src[(h - 1 - r if flip else r)[:, None], c]
-                        continue
-                    s0 = h - r0 - t if flip else r0
-                    tile = torch.full((t, t + 1), float("nan"), device=dev)
-                    for i in range(t):
-                        sc = s0 + torch.arange(t, device=dev)
-                        ok = (sc >= 0) & (sc < h)
-                        if c0 + i < h:
-                            tile[i, :t][ok] = src[c0 + i, sc[ok]]
-                    a = r - r0
-                    out[r[:, None], c] = tile[(c - c0)[None, :],
-                                              (t - 1 - a if flip else a)[:, None]]
-    return outs
+                        row, col = e // nc, e % nc
+                        r = r0 + row if v == 0 else h - 1 - r0 - row
+                        px = r * w + c0 + col
+                    else:
+                        col, row = e // nr, e % nr
+                        r = c0 + col if v == 2 else h - 1 - c0 - col
+                        px = r * w + r0 + row
+                    write(out0 + px, sqs[:, _swizzled(row, col)])
+
+    for cta in range(min(grid, units)):
+        u_begin = units * cta // min(grid, units)
+        u_end = units * (cta + 1) // min(grid, units)
+        n_lists = GATHER_STAGES + 1
+        slots = [None] * n_lists
+        stages = np.full((GATHER_STAGES, 5, side * side), np.nan, np.float32)
+        queued = {}  # stage -> (unit, list slot)
+
+        def find(u, s):
+            while u < u_end:
+                b = u // squares
+                slots[s] = collect(b, 0)
+                if slots[s]["total"]:
+                    return u
+                u = (b + 1) * squares
+            return u_end
+        state = {"next": find(u_begin, 0), "ordinal": 0, "issued": 0}
+
+        def queue():
+            st, s = state["issued"] % GATHER_STAGES, state["ordinal"] % n_lists
+            queued[st] = (state["next"], s)
+            issue(state["next"], slots[s], stages[st])
+            state["issued"] += 1
+            after = state["next"] + 1
+            if after < u_end and after // squares != state["next"] // squares:
+                state["ordinal"] += 1
+                state["next"] = find(after, state["ordinal"] % n_lists)
+            else:
+                state["next"] = after
+        while state["issued"] < GATHER_STAGES - 1 and state["next"] < u_end:
+            queue()
+        done = 0
+        while done < state["issued"]:
+            if state["next"] < u_end:
+                queue()
+            st = done % GATHER_STAGES
+            u, s = queued[st]
+            store(u, slots[s], stages[st])
+            done += 1
+    shape = (3, k, h, w) if stride == 1 else (k, h, w, 3)
+    return torch.from_numpy(out.reshape(shape))

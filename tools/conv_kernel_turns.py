@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time K6a (conv3x3_call), K6b (conv3x3_dw), K7 (double_conv_gn_relu),
 K5 (mad_flag_patches), K1 (fused_gather_extract), K2
-(fused_extract_channel_planes) and K4 (fused_extract_channels) of one or
-more checkouts of the port on one card, in turns, and the paths that run
-K1, K2 and K4 above 128 x 128.
+(fused_extract_channel_planes), K3 (fused_plane_gather_transform) and K4
+(fused_extract_channels) of one or more checkouts of the port on one card,
+in turns, and the paths that run K1, K2, K3 and K4.
 
     python3 tools/conv_kernel_turns.py                       # this checkout
     python3 tools/conv_kernel_turns.py build/old . . build/old
@@ -32,18 +32,21 @@ batch 128 times:
   random 1920 of the 2048 virtual patches (512 base patches x 4
   variants), so that base patches repeat, at most 4 times, and the
   (base, gradient plane) pair repeats where variants orig and T meet
-  (the shape of the training path's static selection),
+  (the shape of the training path's static selection), and K3 on their
+  K2 planes at the same selection with its variants: the wrapper (three
+  planes) and, where the checkout has it, the images wrapper, as "K3",
 - above 128 x 128, on ``chip_smoke.make_waterfalls``' 8 complex64
   waterfalls of 1024 x 1024 and their masks (``PERF.md``'s rows): K4 at
   (32, 256, 256) and (128, 1024, 1024), as "K4_large", K2 at (128, 256,
   256), as "K2_large", K1 at the static selection of patch 256 (M=128,
-  K=480), as "K1_large";
+  K=480), as "K1_large", K3 there (as "K3"), as "K3_large";
 - the paths that run them (no error; ms a call of the host's clock, the
   rate beside it): ``flag_waterfalls(method="model", patch_size=256)``
   with the UNet16 snapshot (``chip_smoke.py`` phase 5's call), as
   "model_256"; ``Preprocessor.create_dataset`` at patch 256, K=480, on
   the 'auto' (K1) and 'planes' (K2 + K3) routes (phase 8's calls), as
-  "prep_256"; ``RawPatchTrainer`` (UNet32 bf16, batch 32) on
+  "prep_256", and at patch 128, K=1920 (phase 8's and the training
+  path's), as "prep_128"; ``RawPatchTrainer`` (UNet32 bf16, batch 32) on
   ``DevicePreprocessor``'s 256 x 256 patches (phase 15), 20 warm epochs,
   as "raw_patch",
 
@@ -73,9 +76,10 @@ from pathlib import Path
 BATCH = 128
 SIDE = 128
 LARGE, K_LARGE = 256, 480  # patches above 128 x 128: the static selection's
-KERNELS = ("K6a", "K6a_dx", "K6b", "K7", "K5", "K5_equal", "K5_whole", "K1", "K2", "K4",
-           "K4_large", "K2_large", "K1_large", "model_256", "prep_256", "raw_patch")
-PATHS = ("model_256", "prep_256", "raw_patch")
+KERNELS = ("K6a", "K6a_dx", "K6b", "K7", "K5", "K5_equal", "K5_whole", "K1", "K2", "K3",
+           "K4", "K4_large", "K2_large", "K1_large", "K3_large", "model_256", "prep_128",
+           "prep_256", "raw_patch")
+PATHS = ("model_256", "prep_128", "prep_256", "raw_patch")
 REPO = Path(__file__).resolve().parents[1]
 SNAPSHOT = REPO / "pretrained" / "unet16_synthetic.npz"
 
@@ -204,7 +208,7 @@ def worker(root, only):
             "shape": "(8,1024,1024) complex64", "gflop": 0.0,
             "err": float((flags != ops.mad_flag_patches_plain(z, 5.0)).sum()),
             "ms": smoke.cuda_ms(lambda: ops.mad_flag_patches(z, 5.0), calls=3, windows=3)})
-    if {"K1", "K2", "K4"} & set(only):
+    if {"K1", "K2", "K3", "K4"} & set(only):
         amp = 1 + 0.1 * randn(512, SIDE, SIDE)
         amp[:, 40:43] += 1e6
         z = torch.polar(amp, 6.3 * torch.rand(amp.shape, device=dev, generator=gen))
@@ -227,10 +231,32 @@ def worker(root, only):
                 got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
                 rows[name].append({"shape": shape, "gflop": 0.0, "err": abs_err(got, want),
                                    "ms": smoke.cuda_ms(lambda: fn(*args))})
-    if {"K4_large", "K2_large", "K1_large", *PATHS} & set(only):
+        if "K3" in only:
+            planes = ops.fused_extract_channel_planes(z)
+            gather_rows(torch, smoke, ops, rows["K3"], (planes, base_idx, pidx, virtual // 512),
+                        "(512,128,128) planes, K=1920")
+    if {"K4_large", "K2_large", "K1_large", "K3_large", *PATHS} & set(only):
         large(torch, smoke, only, rows)
     print(json.dumps({"root": root, "build_s": lib.build_seconds,
                       "device": torch.cuda.get_device_name(0), "rows": rows}), flush=True)
+
+
+def gather_rows(torch, smoke, ops, rows, args, shape, calls=50):
+    """K3's wrapper (three planes) and, where the checkout has it, its
+    images wrapper on ``args`` into ``rows``; err: the elements that
+    differ from the plain version."""
+    want = ops.fused_plane_gather_transform_plain(*args)
+    got = ops.fused_plane_gather_transform(*args)
+    rows.append({"shape": shape + ", planes", "gflop": 0.0,
+                 "err": float(sum(int((g != w).sum()) for g, w in zip(got, want))),
+                 "ms": smoke.cuda_ms(lambda: ops.fused_plane_gather_transform(*args),
+                                     calls=calls)})
+    if hasattr(ops, "fused_plane_gather_transform_images"):
+        images = ops.fused_plane_gather_transform_images(*args)
+        rows.append({"shape": shape + ", images", "gflop": 0.0,
+                     "err": float((images != torch.stack(want, -1)).sum()),
+                     "ms": smoke.cuda_ms(lambda: ops.fused_plane_gather_transform_images(*args),
+                                         calls=calls)})
 
 
 def large(torch, smoke, only, rows):
@@ -253,7 +279,7 @@ def large(torch, smoke, only, rows):
     prep = make_static_prep_fn(LARGE, K_LARGE, return_patches=False)
     sel = prep.base(wf, mask)
     keep = P.static_select_from_has(sel.has, K_LARGE, torch.Generator(device=dev).manual_seed(0))
-    base_idx, _, pidx = prep.indices(sel, keep)
+    base_idx, variant, pidx = prep.indices(sel, keep)
     base = sel.base.contiguous()
     p256 = P.patchify_batch(wf, LARGE).contiguous()
 
@@ -275,6 +301,10 @@ def large(torch, smoke, only, rows):
     if "K1_large" in only:
         kernel("K1_large", ops.fused_gather_extract, ops.fused_gather_extract_plain,
                (base, base_idx, pidx), f"M={base.shape[0]}, K={K_LARGE}, 256^2 complex64")
+    if "K3_large" in only:
+        gather_rows(torch, smoke, ops, rows["K3_large"],
+                    (ops.fused_extract_channel_planes(base), base_idx, pidx, variant),
+                    f"M={base.shape[0]}, K={K_LARGE}, 256^2")
     if "model_256" in only:
         pred = CompiledPredictor.from_snapshot(str(SNAPSHOT), batch_size=smoke.FLAG_BATCH_LARGE,
                                                input_shape=(LARGE, LARGE, 3))
@@ -287,15 +317,17 @@ def large(torch, smoke, only, rows):
         rows["model_256"].append({
             "shape": f"8 x 1024^2, {n * rate:.4g} ({n * lo:.4g}-{n * hi:.4g}) waterfalls/s",
             "gflop": 0.0, "err": None, "ms": 1e3 / rate})
-    if "prep_256" in only:
+    for name, side, k in (("prep_128", SIDE, smoke.K_STATIC), ("prep_256", LARGE, K_LARGE)):
+        if name not in only:
+            continue
         for route in ("auto", "planes"):
             def run():
                 Preprocessor(wf[:, None], flags=mask[:, None]).create_dataset(
-                    patch_size=LARGE, seed=0, extract=route, use_custom_flags=True,
-                    static_num_patches=K_LARGE)
+                    patch_size=side, seed=0, extract=route, use_custom_flags=True,
+                    static_num_patches=k)
             run()
-            rows["prep_256"].append({"shape": f"'{route}', K={K_LARGE}", "gflop": 0.0,
-                                     "err": None, "ms": smoke.host_ms(run, repeats=5)})
+            rows[name].append({"shape": f"'{route}', K={k}", "gflop": 0.0,
+                               "err": None, "ms": smoke.host_ms(run, repeats=5)})
     if "raw_patch" in only:
         raw, raw_masks = DevicePreprocessor(wf, mask).create_raw_patches(seed=0)
         trainer = RawPatchTrainer(UNet(init_features=32, norm="batch", dtype=torch.bfloat16),

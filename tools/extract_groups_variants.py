@@ -155,8 +155,11 @@ def main():
         n, h, w = x.shape
         k = 0 if ix is None else ix[0].numel()
         plane_shapes = [(3, n, h, w), (n, h, w), (n, h, w)]
-        out_shapes = {F._K4: [(n, h, w, 3)], F._K2: plane_shapes, F._K1: [(k, h, w)] * 3}[kind]
+        out_shapes = {F._K4: [(n, h, w, 3)], F._K2: plane_shapes, F._K1: [(3, k, h, w)]}[kind]
         outs = [torch.empty(s, device=dev) for s in out_shapes]
+        buf = outs[0]  # K1: its three planes in one buffer, as its wrapper's
+        if kind == F._K1:
+            outs = list(buf)
         ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
         want = {F._K4: lambda: (F.fused_extract_channels_plain(x),),
                 F._K2: lambda: F.fused_extract_channel_planes_plain(x),
@@ -170,7 +173,7 @@ def main():
                 return
             F._extract_strips(F._K2, x, *planes)
             if kind == F._K1:
-                F._gather_transform(planes, *ix, zeros, outs)
+                F._gather_transform(planes, *ix, zeros, buf, 1)
         print(f"{sname}: strip kernel {C.cuda_ms(strips, calls=10, windows=3):.4f} ms", flush=True)
         for name, (lib, resident, budget) in libs.items():
             for rows in rows_list:

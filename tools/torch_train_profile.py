@@ -12,6 +12,9 @@ one more iteration with ``torch.profiler`` and prints:
 - device time by kernel (top rows) and by class (convolutions,
   BatchNorm, elementwise and reductions, optimiser, the port's kernels,
   copies), with the device's busy and idle share of the iteration;
+- generation and static prep alone: each one's host milliseconds a call
+  (synchronised, median of 5), and one traced call of both with the
+  card's busy share;
 - the train-only time per iteration (median of 3).
 
 With a path ``TABLE``, the profiler's full table (60 rows) is written
@@ -38,8 +41,8 @@ RFI_CONFIG = {
 }
 SIDE, PATCH, WATERFALLS, K, BATCH = 1024, 128, 8, 1920, 128
 CLASSES = (  # first match wins, on the lower-cased kernel name
-    ("port kernels", ("gather_extract", "channel_planes", "plane_gather",
-                      "extract_channels_kernel", "mad_flag")),
+    ("port kernels", ("cluster_extract", "group_extract", "strip_extract", "init_keys",
+                      "plane_gather", "mad_flag")),
     ("convolutions (cuDNN)", ("conv", "xmma", "gemm", "cudnn", "cutlass",
                               "wgrad", "dgrad", "fprop", "nhwc", "nchw")),
     ("BatchNorm", ("batch_norm", "batchnorm", "bn_")),
@@ -121,6 +124,30 @@ def main():
         table.parent.mkdir(parents=True, exist_ok=True)
         table.write_text(prof.key_averages().table(
             sort_by="self_cuda_time_total", row_limit=60))
+
+    def host_ms(fn):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    wf, mask, _ = sample_fn(WATERFALLS, torch.Generator(device=dev).manual_seed(3))
+    gen_ms = host_ms(lambda: sample_fn(WATERFALLS, torch.Generator(device=dev).manual_seed(3)))
+    prep_ms = host_ms(lambda: Preprocessor(wf, flags=mask).create_dataset(
+        patch_size=PATCH, seed=0, static_num_patches=K))
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        dataset(4)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(device_us(e) for e in prof.key_averages())
+    print(f"generation {gen_ms:.2f} ms, static prep {prep_ms:.2f} ms a call (host clock, "
+          f"synchronised); one traced call of both: wall {wall_us / 1e3:.2f} ms, device busy "
+          f"{busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%)")
 
     images, labels = dataset(2)
 
