@@ -16,7 +16,10 @@ coherent 8-channel path, the SOLOLite instance path, the measurement-set
 path, the command-line entry points with their YAML config, and runs over
 several devices):
 - utils: device resolution, the float32 precision switch, progress bars,
-  the errors, and profiling (``trace``, ``annotate``, ``StepTimer``)
+  the errors, and profiling (``trace``, ``annotate``, ``StepTimer``; the
+  program's spans ``profiling.span`` and their recorder
+  ``profiling.recording``: ``flag.*``, ``predict.*``, ``prep.*``,
+  ``train.*`` and ``ms.*``, listed in ``utils/profiling.py``)
 - config: the YAML config loader (``ConfigLoader``, ``TrainingConfig``,
   ``DataConfig``) and its validators
 - cli: the commands ``generate_dataset``, ``normalize_data``,

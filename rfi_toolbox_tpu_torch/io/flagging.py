@@ -12,6 +12,13 @@ Counterpart of ``rfi_toolbox_tpu/io/flagging.py``:
   (``MSLoader``), flagged on the card and written back to its FLAG
   column, in bulk or baseline by baseline with a prefetch thread.
 
+Each step runs in a program span (``utils.profiling.span``):
+``flag.call`` around a ``flag_waterfalls`` call, with ``flag.patchify``,
+``flag.mad``, ``flag.extract``, ``flag.predict`` and ``flag.unpatchify``
+inside it; ``ms.load``, ``ms.to_card``, ``ms.card``, ``ms.to_host`` and
+``ms.save`` around ``flag_measurement_set``'s stages, whose host
+durations fill its ``timings=``.
+
 Complex visibilities go to the card as complex64 as they are (JAX stages
 them as two real planes for TPU runtimes that cannot copy complex types;
 the card can). With a mesh (``mesh=``; one process a device) each rank
@@ -19,6 +26,7 @@ flags its waterfalls, or its patch-aligned slabs of one large waterfall,
 and the flags are gathered back to every rank.
 """
 
+import contextlib
 import logging
 import threading
 import time
@@ -37,6 +45,7 @@ from ..parallel.mesh import batch_placement
 from ..preprocess import pipeline as P
 from ..train.coherent_trainer import robust_scale, to_8ch
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..utils.progress import progress
 from .ms_loader import MSLoader
 
@@ -101,47 +110,54 @@ def flag_waterfalls(waterfalls, method="mad", sigma=5.0, patch_size=128,
     Returns:
         (M, C, T) bool tensor on the device.
     """
-    if use_pallas not in ("auto", True, False):
-        raise ValueError(f"use_pallas must be 'auto', True or False, got {use_pallas!r}")
-    kernels = use_pallas is not False
-    dev = resolve_device(device)
-    flat = _as_waterfalls(waterfalls, dev)
-    m0, c0, t0 = flat.shape
-    split, rows = 1, None
-    if mesh is not None:
-        n_ax = mesh.shape["data"]
-        if m0 < n_ax and c0 > patch_size:
-            flat, split = _split_channels(flat, n_ax, patch_size)
-        rows = batch_placement(flat.shape[0], mesh)
-        if rows.axis is None:  # replicated: the whole batch on every rank
-            rows = None
+    with span("flag.call"):
+        if use_pallas not in ("auto", True, False):
+            raise ValueError(f"use_pallas must be 'auto', True or False, got {use_pallas!r}")
+        kernels = use_pallas is not False
+        dev = resolve_device(device)
+        flat = _as_waterfalls(waterfalls, dev)
+        m0, c0, t0 = flat.shape
+        split, rows = 1, None
+        if mesh is not None:
+            n_ax = mesh.shape["data"]
+            if m0 < n_ax and c0 > patch_size:
+                flat, split = _split_channels(flat, n_ax, patch_size)
+            rows = batch_placement(flat.shape[0], mesh)
+            if rows.axis is None:  # replicated: the whole batch on every rank
+                rows = None
+            else:
+                flat = rows.local(flat)
+        m, c, t = flat.shape
+        patched = not (c <= patch_size and t <= patch_size and split == 1)
+        with span("flag.patchify"):
+            patches = P.patchify_batch(flat, patch_size).contiguous() if patched else flat
+
+        if method == "mad":
+            with span("flag.mad"):
+                flags = (mad_flag_patches if kernels else mad_flag_patches_plain)(patches, sigma)
+        elif method == "model":
+            if predictor is None:
+                raise ValueError("method='model' requires a predictor")
+            extract = fused_extract_channels if kernels else fused_extract_channels_plain
+            with span("flag.extract"):
+                images = extract(patches)
+            with span("flag.predict"):
+                preds = torch.as_tensor(predictor(images), device=dev)
+            flags = preds if preds.dtype == torch.bool else preds > threshold
         else:
-            flat = rows.local(flat)
-    m, c, t = flat.shape
-    patched = not (c <= patch_size and t <= patch_size and split == 1)
-    patches = P.patchify_batch(flat, patch_size).contiguous() if patched else flat
+            raise ValueError(f"Unknown method '{method}' (use 'mad' or 'model')")
 
-    if method == "mad":
-        flags = (mad_flag_patches if kernels else mad_flag_patches_plain)(patches, sigma)
-    elif method == "model":
-        if predictor is None:
-            raise ValueError("method='model' requires a predictor")
-        extract = fused_extract_channels if kernels else fused_extract_channels_plain
-        preds = torch.as_tensor(predictor(extract(patches)), device=dev)
-        flags = preds if preds.dtype == torch.bool else preds > threshold
-    else:
-        raise ValueError(f"Unknown method '{method}' (use 'mad' or 'model')")
-
-    if patched:
-        flags = P.unpatchify_batch(flags, m, c, t)
-    if rows is not None:
-        parts = [torch.empty_like(flags, dtype=torch.uint8) for _ in range(mesh.shape["data"])]
-        dist.all_gather(parts, flags.to(torch.uint8).contiguous(),
-                        group=mesh.get_group("data"))
-        flags = torch.cat(parts).bool()
-    if split > 1:
-        flags = flags.reshape(m0, -1, t0)[:, :c0]
-    return flags
+        with span("flag.unpatchify"):
+            if patched:
+                flags = P.unpatchify_batch(flags, m, c, t)
+        if rows is not None:
+            parts = [torch.empty_like(flags, dtype=torch.uint8) for _ in range(mesh.shape["data"])]
+            dist.all_gather(parts, flags.to(torch.uint8).contiguous(),
+                            group=mesh.get_group("data"))
+            flags = torch.cat(parts).bool()
+        if split > 1:
+            flags = flags.reshape(m0, -1, t0)[:, :c0]
+        return flags
 
 
 def flag_waterfalls_coherent(vis4, predictor, patch_size=128, threshold=0.5,
@@ -194,52 +210,50 @@ def coherent_images(vis4, patch_size):
     return robust_scale(x, valid)
 
 
-class _Stages:
-    """Host seconds of ``flag_measurement_set``'s stages, summed into the
-    caller's dict (None: nothing is timed and the card is not waited
-    for)."""
-
-    def __init__(self, out, device):
-        self.out = out
-        self.sync = out is not None and device.type == "cuda"
-        self.t = time.perf_counter()
-
-    def mark(self, stage):
-        if self.out is None:
+@contextlib.contextmanager
+def _stage(name, timings, dev):
+    """A stage of ``flag_measurement_set`` in its ``ms.<name>`` span.
+    With ``timings`` (a dict) its host seconds are added there under
+    ``name``, the card waited for at its end; None: nothing is timed and
+    the card is not waited for."""
+    with span(f"ms.{name}"):
+        if timings is None:
+            yield
             return
-        if self.sync:
+        t = time.perf_counter()
+        yield
+        if dev.type == "cuda":
             torch.cuda.synchronize()
-        now = time.perf_counter()
-        self.out[stage] = self.out.get(stage, 0.0) + now - self.t
-        self.t = now
+        timings[name] = timings.get(name, 0.0) + time.perf_counter() - t
 
 
 def _flag_block(vis, method, sigma, patch_size, predictor, threshold, use_pallas,
-                mesh, dev, stages):
+                mesh, dev, timings):
     """(B, P, C, T) complex128 host visibilities -> (B, P, C, T) bool host
     flags: one cast to complex64 on the host, one copy to the card, one
     flagging call, one copy back."""
     b, p, c, t = vis.shape
-    x = torch.from_numpy(vis.astype(np.complex64)).to(dev)
-    stages.mark("to_card")
+    with _stage("to_card", timings, dev):
+        x = torch.from_numpy(vis.astype(np.complex64)).to(dev)
     if method == "model8":
         if predictor is None:
             raise ValueError("method='model8' requires a predictor")
         if p != 4:
             raise ValueError(f"method='model8' needs 4 polarizations, MS has {p}")
-        flags = flag_waterfalls_coherent(x, predictor, patch_size=patch_size,
-                                         threshold=threshold, device=dev)
-        stages.mark("card")
-        # one (C, T) mask a baseline, shared by the 4 pols
-        flags = np.broadcast_to(flags.cpu().numpy()[:, None], (b, p, c, t)).copy()
+        with _stage("card", timings, dev):
+            flags = flag_waterfalls_coherent(x, predictor, patch_size=patch_size,
+                                             threshold=threshold, device=dev)
+        with _stage("to_host", timings, dev):
+            # one (C, T) mask a baseline, shared by the 4 pols
+            flags = np.broadcast_to(flags.cpu().numpy()[:, None], (b, p, c, t)).copy()
     else:
-        flags = flag_waterfalls(x.reshape(b * p, c, t), method=method, sigma=sigma,
-                                patch_size=patch_size, predictor=predictor,
-                                threshold=threshold, use_pallas=use_pallas, mesh=mesh,
-                                device=dev)
-        stages.mark("card")
-        flags = flags.cpu().numpy().reshape(b, p, c, t)
-    stages.mark("to_host")
+        with _stage("card", timings, dev):
+            flags = flag_waterfalls(x.reshape(b * p, c, t), method=method, sigma=sigma,
+                                    patch_size=patch_size, predictor=predictor,
+                                    threshold=threshold, use_pallas=use_pallas, mesh=mesh,
+                                    device=dev)
+        with _stage("to_host", timings, dev):
+            flags = flags.cpu().numpy().reshape(b, p, c, t)
     return flags
 
 
@@ -289,40 +303,43 @@ def flag_measurement_set(ms, method="mad", sigma=5.0, patch_size=128, predictor=
             "predictor owns its device placement (AOT-compiled "
             "single-device executable)"
         )
-    stages = _Stages(timings, dev)
     args = dict(method=method, sigma=sigma, patch_size=patch_size, predictor=predictor,
                 threshold=threshold, use_pallas=use_pallas,
-                mesh=None if method == "model8" else mesh, dev=dev, stages=stages)
+                mesh=None if method == "model8" else mesh, dev=dev, timings=timings)
     writer = mesh is None or dist.get_rank() == 0
-    loader = MSLoader(ms, field_id=field_id)
+    ragged = None
+    with _stage("load", timings, dev):
+        loader = MSLoader(ms, field_id=field_id)
+        if not streaming:
+            try:
+                data = loader.load(num_antennas=num_antennas, mode=mode)
+            except ValueError as e:
+                ragged = e
+    if ragged is not None:
+        # a ragged observation (an antenna offline for part of the run):
+        # the bulk layout cannot hold it; the per-baseline path can, and
+        # reports bad baselines in 'failed'
+        logger.warning("bulk load failed (%s); falling back to per-baseline "
+                       "streaming", ragged)
+        loader.close()
+        return flag_measurement_set(
+            ms, method=method, sigma=sigma, patch_size=patch_size,
+            predictor=predictor, threshold=threshold, num_antennas=num_antennas,
+            mode=mode, field_id=field_id, merge_existing=merge_existing,
+            use_pallas=use_pallas, streaming=True, mesh=mesh, device=device,
+            timings=timings)
     if not streaming:
-        try:
-            data = loader.load(num_antennas=num_antennas, mode=mode)
-        except ValueError as e:
-            # a ragged observation (an antenna offline for part of the
-            # run): the bulk layout cannot hold it; the per-baseline path
-            # can, and reports bad baselines in 'failed'
-            logger.warning("bulk load failed (%s); falling back to per-baseline "
-                           "streaming", e)
-            loader.close()
-            return flag_measurement_set(
-                ms, method=method, sigma=sigma, patch_size=patch_size,
-                predictor=predictor, threshold=threshold, num_antennas=num_antennas,
-                mode=mode, field_id=field_id, merge_existing=merge_existing,
-                use_pallas=use_pallas, streaming=True, mesh=mesh, device=device,
-                timings=timings)
-        stages.mark("load")
         if len(data) == 0:
             loader.close()
             return {"baselines": 0, "flagged_fraction": 0.0, "failed": []}
         flags = _flag_block(data, **args)
-        if merge_existing:
-            flags |= loader.load_flags()
-        if writer:
-            loader.save_flags(flags)
-        _wait_for_writer(mesh)
-        loader.close()
-        stages.mark("save")
+        with _stage("save", timings, dev):
+            if merge_existing:
+                flags |= loader.load_flags()
+            if writer:
+                loader.save_flags(flags)
+            _wait_for_writer(mesh)
+            loader.close()
         return {"baselines": data.shape[0], "flagged_fraction": float(flags.mean()),
                 "failed": []}
 
@@ -333,7 +350,7 @@ def flag_measurement_set(ms, method="mad", sigma=5.0, patch_size=128, predictor=
         return {"baselines": 0, "flagged_fraction": 0.0, "failed": []}
 
     # the prefetch thread only reads the MS on the host; all work on the
-    # card stays on this thread
+    # card, and every span, stays on this thread
     loaded = {}
 
     def load_one(pair):
@@ -350,12 +367,12 @@ def flag_measurement_set(ms, method="mad", sigma=5.0, patch_size=128, predictor=
     prefetch = threading.Thread(target=load_one, args=(pairs[0],))
     prefetch.start()
     for idx, pair in progress(list(enumerate(pairs)), desc="Baselines", total=len(pairs)):
-        prefetch.join()
-        data = loaded.pop(pair)
-        if idx + 1 < len(pairs):
-            prefetch = threading.Thread(target=load_one, args=(pairs[idx + 1],))
-            prefetch.start()
-        stages.mark("load")
+        with _stage("load", timings, dev):
+            prefetch.join()
+            data = loaded.pop(pair)
+            if idx + 1 < len(pairs):
+                prefetch = threading.Thread(target=load_one, args=(pairs[idx + 1],))
+                prefetch.start()
         if isinstance(data, Exception):
             logger.warning("baseline %s load failed: %s", pair, data)
             failed.append({"baseline": pair, "error": str(data)})
@@ -363,11 +380,11 @@ def flag_measurement_set(ms, method="mad", sigma=5.0, patch_size=128, predictor=
         if data.shape[-1] == 0:
             continue
         flags = _flag_block(data[None], **args)[0]
-        if merge_existing:
-            flags |= loader.load_baseline_flags(pair[0], pair[1], field_id=field_id)
-        if writer:
-            loader.save_baseline_flags(pair[0], pair[1], flags, field_id=field_id)
-        stages.mark("save")
+        with _stage("save", timings, dev):
+            if merge_existing:
+                flags |= loader.load_baseline_flags(pair[0], pair[1], field_id=field_id)
+            if writer:
+                loader.save_baseline_flags(pair[0], pair[1], flags, field_id=field_id)
         total_flagged += float(flags.sum())
         total_pixels += flags.size
         n_done += 1

@@ -25,6 +25,8 @@ for exact outputs (the MAD flags):
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 __all__ = [
     "patchify",
     "patchify_batch",
@@ -274,10 +276,11 @@ def static_select_from_has(has, k, generator):
     ``torch.randperm`` drawn from ``generator`` (a ``torch.Generator`` on
     the device of ``has``). JAX's ``jax.random.permutation`` stream
     cannot be reproduced, so only the kept multiset matches the
-    reference."""
-    kept = static_select_kept(has, k)
-    perm = torch.randperm(k, generator=generator, device=has.device)
-    return kept[perm]
+    reference. In the ``prep.select`` span."""
+    with span("prep.select"):
+        kept = static_select_kept(has, k)
+        perm = torch.randperm(k, generator=generator, device=has.device)
+        return kept[perm]
 
 
 def static_select_flagged(flag_patches, k, generator):

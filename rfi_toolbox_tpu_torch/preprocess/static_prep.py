@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import ops
+from ..utils.profiling import span
 from . import pipeline as P
 
 __all__ = [
@@ -175,31 +176,33 @@ class StaticPrep:
     def base(self, flat, flag_flat):
         """(M, H, W) waterfalls -> :class:`Base`: the base patches after
         the real-input steps, their flags, and the virtual any-flag
-        vector in the materialised path's order ``(wf*R + v)*kpp + p_v``."""
-        p = self.patch_size
-        m, h, w = flat.shape
-        if h % p or w % p or (h <= p and w <= p):
-            raise ValueError(
-                f"the static path needs whole patches of {p}, got {h} x {w}")
-        nh, nw = h // p, w // p
-        base = P.patchify_batch(flat, p)
-        if not base.is_complex():
-            if self.normalize_before_stretch:
-                base = P.normalize_by_median(base)
-            if self.stretch:
-                base = P.apply_stretch(base, self.stretch)
-            if self.normalize_after_stretch:
-                base = P.normalize_by_median(base)
-        if self.flags_mode == "custom":
-            base_f = P.patchify_batch(flag_flat != 0, p)
-        elif self.use_kernels:
-            base_f = ops.mad_flag_patches(base.contiguous(), self.flag_sigma)
-        else:
-            base_f = P.mad_flag_patches(base, self.flag_sigma)
-        remap = _device_constant("remap", base.device, nh, nw, self.rotations)
-        base_any = base_f.reshape(m, nh * nw, -1).any(dim=-1)
-        has = base_any[:, remap].reshape(-1)
-        return Base(base, base_f, has, nh, nw)
+        vector in the materialised path's order ``(wf*R + v)*kpp + p_v``;
+        in the ``prep.base`` span."""
+        with span("prep.base"):
+            p = self.patch_size
+            m, h, w = flat.shape
+            if h % p or w % p or (h <= p and w <= p):
+                raise ValueError(
+                    f"the static path needs whole patches of {p}, got {h} x {w}")
+            nh, nw = h // p, w // p
+            base = P.patchify_batch(flat, p)
+            if not base.is_complex():
+                if self.normalize_before_stretch:
+                    base = P.normalize_by_median(base)
+                if self.stretch:
+                    base = P.apply_stretch(base, self.stretch)
+                if self.normalize_after_stretch:
+                    base = P.normalize_by_median(base)
+            if self.flags_mode == "custom":
+                base_f = P.patchify_batch(flag_flat != 0, p)
+            elif self.use_kernels:
+                base_f = ops.mad_flag_patches(base.contiguous(), self.flag_sigma)
+            else:
+                base_f = P.mad_flag_patches(base, self.flag_sigma)
+            remap = _device_constant("remap", base.device, nh, nw, self.rotations)
+            base_any = base_f.reshape(m, nh * nw, -1).any(dim=-1)
+            has = base_any[:, remap].reshape(-1)
+            return Base(base, base_f, has, nh, nw)
 
     def indices(self, b, keep):
         """Virtual indices ``keep`` (K,) -> ``(base_idx, variant, pidx)``
@@ -224,37 +227,39 @@ class StaticPrep:
     def from_keep(self, b, keep):
         """Everything downstream of the selection: for :class:`Base` ``b``
         and the virtual indices ``keep`` (K,), ``(images, labels,
-        patches, flag_patches)`` as :class:`StaticPrep` returns them."""
-        base, base_f = b.base, b.base_f
-        r = _N_VARIANTS[self.rotations]
-        n_base = base.shape[0]
-        base_idx, v, pidx = self.indices(b, keep)
+        patches, flag_patches)`` as :class:`StaticPrep` returns them; in
+        the ``prep.extract`` span."""
+        with span("prep.extract"):
+            base, base_f = b.base, b.base_f
+            r = _N_VARIANTS[self.rotations]
+            n_base = base.shape[0]
+            base_idx, v, pidx = self.indices(b, keep)
 
-        flag_patches = transform_by_variant(base_f[base_idx], v)
-        labels = flag_patches.to(torch.uint8)
-        patches = self.patches(b, keep) if self.return_patches else None
-        extract_base = self.extract in ("base", "planes") or (
-            self.extract == "auto" and r > 1 and self.k > n_base)
-        kernels = self.use_kernels
-        if extract_base:
-            if kernels and self.extract == "planes":
-                planes = ops.fused_extract_channel_planes(base.contiguous())
-                images = ops.fused_plane_gather_transform_images(
-                    planes, base_idx, pidx, v)
-            elif kernels:
-                planes = ops.fused_gather_extract(base.contiguous(), base_idx, pidx)
-                images = ops.fused_plane_gather_transform_images(planes, None, None, v)
+            flag_patches = transform_by_variant(base_f[base_idx], v)
+            labels = flag_patches.to(torch.uint8)
+            patches = self.patches(b, keep) if self.return_patches else None
+            extract_base = self.extract in ("base", "planes") or (
+                self.extract == "auto" and r > 1 and self.k > n_base)
+            kernels = self.use_kernels
+            if extract_base:
+                if kernels and self.extract == "planes":
+                    planes = ops.fused_extract_channel_planes(base.contiguous())
+                    images = ops.fused_plane_gather_transform_images(
+                        planes, base_idx, pidx, v)
+                elif kernels:
+                    planes = ops.fused_gather_extract(base.contiguous(), base_idx, pidx)
+                    images = ops.fused_plane_gather_transform_images(planes, None, None, v)
+                else:
+                    planes = ops.fused_gather_extract_plain(base, base_idx, pidx)
+                    images = transform_by_variant_nhwc(torch.stack(planes, dim=-1), v)
             else:
-                planes = ops.fused_gather_extract_plain(base, base_idx, pidx)
-                images = transform_by_variant_nhwc(torch.stack(planes, dim=-1), v)
-        else:
-            src = patches if patches is not None else transform_by_variant(
-                base[base_idx], v)
-            if kernels:
-                images = ops.fused_extract_channels(src.contiguous())
-            else:
-                images = ops.fused_extract_channels_plain(src)
-        return images, labels, patches, flag_patches
+                src = patches if patches is not None else transform_by_variant(
+                    base[base_idx], v)
+                if kernels:
+                    images = ops.fused_extract_channels(src.contiguous())
+                else:
+                    images = ops.fused_extract_channels_plain(src)
+            return images, labels, patches, flag_patches
 
     def __call__(self, flat, flag_flat, generator):
         b = self.base(flat, flag_flat)

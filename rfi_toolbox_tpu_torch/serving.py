@@ -20,6 +20,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from .models.convert import unet_from_snapshot
 from .models.folding import fold_batchnorm
 from .utils.device import resolve_device, set_tf32
+from .utils.profiling import span
 
 __all__ = ["CompiledPredictor", "predict_mask"]
 
@@ -107,8 +108,9 @@ class CompiledPredictor:
 
     def logits(self, images):
         """(B, H, W, C) float32 tensor on the predictor's device ->
-        (B, H, W) logits."""
-        with torch.inference_mode():
+        (B, H, W) logits: the model's forward alone, in the
+        ``predict.logits`` span."""
+        with span("predict.logits"), torch.inference_mode():
             return self.model(images.permute(0, 3, 1, 2))[:, 0]
 
     def _mask(self, images):
@@ -116,22 +118,23 @@ class CompiledPredictor:
 
     def __call__(self, images):
         """(N, H, W, C) tensor or array -> (N, H, W) bool tensor on the
-        predictor's device, for any N."""
-        x = torch.as_tensor(images).to(self.device, torch.float32)
-        if tuple(x.shape[1:]) != self.input_shape:
-            raise ValueError(
-                f"expected (N, {', '.join(map(str, self.input_shape))}), "
-                f"got {tuple(x.shape)}"
-            )
-        n = x.shape[0]
-        bs = self.batch_size
-        out = torch.empty((n, *self.input_shape[:2]), dtype=torch.bool,
-                          device=self.device)
-        for start in range(0, n, bs):
-            chunk = x[start:start + bs]
-            valid = chunk.shape[0]
-            if valid < bs:
-                chunk = torch.cat([chunk, chunk.new_zeros((bs - valid,
-                                                           *self.input_shape))])
-            out[start:start + valid] = self._mask(chunk)[:valid]
-        return out
+        predictor's device, for any N; in the ``predict`` span."""
+        with span("predict"):
+            x = torch.as_tensor(images).to(self.device, torch.float32)
+            if tuple(x.shape[1:]) != self.input_shape:
+                raise ValueError(
+                    f"expected (N, {', '.join(map(str, self.input_shape))}), "
+                    f"got {tuple(x.shape)}"
+                )
+            n = x.shape[0]
+            bs = self.batch_size
+            out = torch.empty((n, *self.input_shape[:2]), dtype=torch.bool,
+                              device=self.device)
+            for start in range(0, n, bs):
+                chunk = x[start:start + bs]
+                valid = chunk.shape[0]
+                if valid < bs:
+                    chunk = torch.cat([chunk, chunk.new_zeros((bs - valid,
+                                                               *self.input_shape))])
+                out[start:start + valid] = self._mask(chunk)[:valid]
+            return out

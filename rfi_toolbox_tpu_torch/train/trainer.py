@@ -74,6 +74,7 @@ from ..parallel.mesh import (
 )
 from ..serving import predict_mask
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .losses import bce_dice_loss
 
 __all__ = ["TrainState", "Trainer", "create_train_state", "train_step",
@@ -228,15 +229,20 @@ def train_step(state, images, labels, group=None):
     waits for the card). With ``group``, the images are this rank's rows
     of a batch spread over the group's ranks: the loss and the BatchNorm
     statistics are the whole batch's, and the gradients are summed over
-    the group before the update."""
-    state.model.train()
-    with batch_norm_group(state.model, group):
-        loss = bce_dice_loss(_logits(state.model, images), labels, group=group)
-        grads = list(torch.autograd.grad(loss, state.params))
-    if group is not None:
-        grads = all_reduce_grads(grads, group)
-    state.apply_gradients(grads)
-    return state, loss.detach()
+    the group before the update. In the ``train.step`` span, its phases
+    in ``train.forward``, ``train.backward`` and ``train.optimizer``."""
+    with span("train.step"):
+        state.model.train()
+        with batch_norm_group(state.model, group):
+            with span("train.forward"):
+                loss = bce_dice_loss(_logits(state.model, images), labels, group=group)
+            with span("train.backward"):
+                grads = list(torch.autograd.grad(loss, state.params))
+                if group is not None:
+                    grads = all_reduce_grads(grads, group)
+        with span("train.optimizer"):
+            state.apply_gradients(grads)
+        return state, loss.detach()
 
 
 def train_steps(state, images, labels, group=None):
