@@ -127,10 +127,13 @@ exit) if any phase fails:
     (within 1e-5 of the layer's max |y|), times of the kernel, the plain
     version and cuDNN's fused conv+bias+ReLU, and each layer's bound
     (Winograd's products, ``WINOGRAD_M``, at 3xTF32's rate on the tensor
-    cores), under which none of the three times may fall; then
-    flag_waterfalls with every DoubleConv computed by K6a: one launch per
-    layer, masks against the cuDNN predictor (>= 99.9% of the pixels),
-    IoU > 0.9;
+    cores), under which none of the three times may fall; then the
+    predictor's own route (``route == "k6a_nhwc"``, the channels-last
+    forward of ``models/nhwc_forward.py``): 18 K6a launches a forward of
+    128 and 72 in one flag_waterfalls call, its logits within 2e-4 of
+    the eager cuDNN forward (TF32 off) on 512 images, its masks equal
+    wherever the eager probability is clear of the cut by more than that
+    gap, IoU > 0.9;
 11. the same for K7 (double_conv_gn_relu) on the 9 DoubleConvs of the
     GroupNorm UNet16 snapshot, against its plain version and the port's
     DoubleConv eval forward (within 1e-4);
@@ -383,6 +386,7 @@ TRAIN_LOSS_RTOL = 1e-4  # the float32 UNet32 step through K6a + K6b vs cuDNN
 GRAD_RTOL = 1e-3  # all parameters, relative L2, against cuDNN's step
 GRAD_F64_FLOOR = 1e-4
 MASK_AGREE = 0.999  # share of pixels two forwards must flag alike
+ROUTE_LOGITS_ATOL = 2e-4  # the predictor's route against its eager forward (the benchmark's limit)
 # Phase 14: configs/data_generation/synthetic_train_4k.yaml and
 # synthetic_val_1k.yaml as dict literals (the card has no PyYAML;
 # tests/test_torch_generator.py holds them to the files), each cut as
@@ -2969,8 +2973,14 @@ def main():
     convs = convs_of(pred.model)
     require(pred.folded and len(convs) == 18, "the folded UNet16 has 18 conv3x3 layers")
     k6a_rows = []
+    require(pred.route == "k6a_nhwc", f"the folded UNet16 takes the {pred.route} route")
+
+    def eager_logits(x):  # the model's own NCHW forward: cuDNN, TF32 off
+        with torch.inference_mode():
+            return pred.model(x.permute(0, 3, 1, 2))[:, 0]
+
     with torch.inference_mode():
-        seen = capture(convs, lambda: pred.logits(images[:BATCH]))
+        seen = capture(convs, lambda: eager_logits(images[:BATCH]))
         for conv, (x_nchw, y_conv) in zip(convs, seen):
             x = x_nchw.permute(0, 2, 3, 1).contiguous()
             xl = x.permute(0, 3, 1, 2)  # channels-last NCHW view, cuDNN's NHWC kernels
@@ -3004,14 +3014,6 @@ def main():
         f"error {worst:.1e} of the layer's max |y| (tol {CONV_RTOL:g}); {rate(k6a_rows)}")
     require(worst <= CONV_RTOL, "K6a disagrees with its plain version or the cuDNN layer")
 
-    def through_k6a(dc):
-        w1, w2 = hwio(dc.conv1), hwio(dc.conv2)
-
-        def forward(x):  # the folded block: relu(conv + b), twice
-            y = ops.conv3x3_bias_relu(x.permute(0, 2, 3, 1), w1, dc.conv1.bias)
-            return ops.conv3x3_bias_relu(y, w2, dc.conv2.bias).permute(0, 3, 1, 2)
-        return forward
-
     def whole_forward(pred, blocks, patch, name, launches_of, per_forward):
         """Masks of the predictor with every DoubleConv's forward replaced
         by patch(block), against its own, and the main path
@@ -3044,8 +3046,40 @@ def main():
         require(m["iou"] > 0.9, f"{name}: flags miss the injected RFI")
         return launches
 
-    k6a_launches = whole_forward(pred, blocks_of(pred.model), through_k6a,
-                                 "K6a, folded UNet16", lambda: ops.conv3x3_call.launches, 18)
+    # the predictor's own route: its channels-last forward, K6a with bias and ReLU fused
+    chunks = [images[i:i + BATCH] for i in range(0, n_patches, BATCH)]
+    reset_counts()
+    got = pred.logits(chunks[0])
+    torch.cuda.synchronize()
+    per_forward = ops.conv3x3_call.launches
+    got = torch.cat([got] + [pred.logits(c) for c in chunks[1:]])
+    want = torch.cat([eager_logits(c) for c in chunks])
+    gap = float((got - want).abs().max())
+    masks = pred(images)
+    p_want = torch.sigmoid(want)
+    differ = masks != (p_want > pred.threshold)
+    off_edge = int((differ & ((p_want - pred.threshold).abs() > gap)).sum())
+    route_ms = cuda_ms(lambda: pred(images), calls=3, windows=3)
+    eager_ms = cuda_ms(lambda: [eager_logits(c) for c in chunks], calls=3, windows=3)
+    flag_waterfalls(wf, method="model", predictor=pred)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    flags = flag_waterfalls(wf, method="model", predictor=pred)
+    torch.cuda.synchronize()
+    k6a_launches = ops.conv3x3_call.launches
+    m = evaluate_segmentation(flags, mask)
+    log(f"K6a, the folded UNet16's route ({pred.route}): {per_forward} launches a forward of "
+        f"{BATCH}, {k6a_launches} in one flag_waterfalls call; logits within {gap:.2e} of the "
+        f"eager cuDNN forward on {n_patches} images (tol {ROUTE_LOGITS_ATOL:g}); masks differ on "
+        f"{int(differ.sum())} pixels, {off_edge} of them clear of the cut by more than the gap; "
+        f"IoU {m['iou']:.4f}; predictor on {n_patches} images {route_ms:.2f} ms through the "
+        f"route, the eager forwards {eager_ms:.2f} ms")
+    require(per_forward == 18, "the route did not launch K6a once per conv3x3 layer")
+    require(k6a_launches == 18 * n_patches // BATCH,
+            "the main path did not launch K6a once per layer of each forward")
+    require(gap <= ROUTE_LOGITS_ATOL, "the route's logits are far from the eager forward's")
+    require(off_edge == 0, "the route's masks differ from the eager forward's off the cut")
+    require(m["iou"] > 0.9, "the route's flags miss the injected RFI")
     phases["K6a"] = time.perf_counter() - t
 
     # -- K7 on the GroupNorm UNet16 (serving) -----------------------------------------

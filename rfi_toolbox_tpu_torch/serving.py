@@ -7,6 +7,16 @@ off), and every request is still cut into chunks of exactly
 ``batch_size`` images, the last one zero-padded, so each forward sees the
 same shape.
 
+The forward's route (``CompiledPredictor.route``) follows from the model
+after folding. A float32 ``norm="none"`` UNet with ReLU, no space-to-depth
+and no final sigmoid (a folded BatchNorm UNet, such as the shipped
+``unet16_synthetic.npz``) runs ``"k6a_nhwc"``: the channels-last forward
+of :mod:`.models.nhwc_forward`, its 3x3 convs on K6a with bias and ReLU
+fused, built once at construction, in the ``predict.nhwc`` span inside
+``predict.logits``. Every other model (GroupNorm, another activation,
+space-to-depth, ``UNetOverfit``, bfloat16, an unfolded BatchNorm) runs
+``"eager"``: the model's own NCHW forward, as before.
+
 >>> from rfi_toolbox_tpu_torch.serving import CompiledPredictor
 >>> pred = CompiledPredictor.from_snapshot("pretrained/unet16_synthetic.npz")
 >>> masks = pred(images)        # (N, 128, 128, 3) -> (N, 128, 128) bool
@@ -19,6 +29,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from .models.convert import unet_from_snapshot
 from .models.folding import fold_batchnorm
+from .models.nhwc_forward import NHWCForward
 from .utils.device import resolve_device, set_tf32
 from .utils.profiling import span
 
@@ -58,6 +69,15 @@ class CompiledPredictor:
             BatchNorm. Logits then match the unfolded model to float
             rounding.
         device: ``None`` for the CUDA card, or e.g. ``"cpu"``.
+
+    ``route`` is ``"k6a_nhwc"`` where the model after folding is one
+    :class:`~.models.nhwc_forward.NHWCForward` covers, else ``"eager"``
+    (module docstring).
+
+    The predictor serves the model as it is at construction, on every
+    route: treat ``model`` as read-only from then on. The ``"k6a_nhwc"``
+    route forwards copies of its weights taken at construction; to serve
+    other weights, build a new predictor.
     """
 
     def __init__(self, model, input_shape=(128, 128, 3), batch_size=32,
@@ -74,6 +94,8 @@ class CompiledPredictor:
         if self.device.type == "cuda":
             set_tf32(False)
         self.model = model.to(self.device).eval()
+        self._nhwc = NHWCForward(self.model) if NHWCForward.covers(self.model) else None
+        self.route = "eager" if self._nhwc is None else "k6a_nhwc"
 
     @classmethod
     def from_snapshot(cls, path, model=None, device=None, **kwargs):
@@ -108,9 +130,11 @@ class CompiledPredictor:
 
     def logits(self, images):
         """(B, H, W, C) float32 tensor on the predictor's device ->
-        (B, H, W) logits: the model's forward alone, in the
-        ``predict.logits`` span."""
+        (B, H, W) logits: the model's forward alone, by :attr:`route`, in
+        the ``predict.logits`` span."""
         with span("predict.logits"), torch.inference_mode():
+            if self._nhwc is not None:
+                return self._nhwc(images)
             return self.model(images.permute(0, 3, 1, 2))[:, 0]
 
     def _mask(self, images):

@@ -217,10 +217,13 @@ STEP = [("train.step", None), ("train.forward", "train.step"),
         ("train.backward", "train.step"), ("train.optimizer", "train.step")]
 CASES = {
     "mad": (_mad, FLAG + [("flag.mad", "flag.call"), ("flag.unpatchify", "flag.call")]),
-    # 8 patches of 32 through a predictor of batch 4: two forwards
+    # 8 patches of 32 through a predictor of batch 4: two forwards, each by
+    # the folded UNet's k6a_nhwc route
     "model": (_model, FLAG + [("flag.extract", "flag.call"), ("flag.predict", "flag.call"),
                               ("predict", "flag.predict"), ("predict.logits", "predict"),
+                              ("predict.nhwc", "predict.logits"),
                               ("predict.logits", "predict"),
+                              ("predict.nhwc", "predict.logits"),
                               ("flag.unpatchify", "flag.call")]),
     "static_prep": (_static_prep, [("prep.base", None), ("prep.select", None),
                                    ("prep.extract", None)]),
