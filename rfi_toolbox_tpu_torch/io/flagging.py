@@ -15,9 +15,13 @@ Counterpart of ``rfi_toolbox_tpu/io/flagging.py``:
 Each step runs in a program span (``utils.profiling.span``):
 ``flag.call`` around a ``flag_waterfalls`` call, with ``flag.patchify``,
 ``flag.mad``, ``flag.extract``, ``flag.predict`` and ``flag.unpatchify``
-inside it; ``ms.load``, ``ms.to_card``, ``ms.card``, ``ms.to_host`` and
-``ms.save`` around ``flag_measurement_set``'s stages, whose host
-durations fill its ``timings=``.
+inside it; ``coherent.call`` around a ``flag_waterfalls_coherent`` call,
+with ``coherent.images`` (``coherent_images``: patchify, ``to_8ch`` and
+the robust scale, ``coherent.scale``, inside it), ``coherent.predict``
+and ``coherent.unpatchify`` inside it; ``ms.load``, ``ms.to_card``,
+``ms.card``, ``ms.to_host`` and ``ms.save`` around
+``flag_measurement_set``'s stages, whose host durations fill its
+``timings=``.
 
 Complex visibilities go to the card as complex64 as they are (JAX stages
 them as two real planes for TPU runtimes that cannot copy complex types;
@@ -182,32 +186,39 @@ def flag_waterfalls_coherent(vis4, predictor, patch_size=128, threshold=0.5,
     Returns:
         (B, C, T) bool tensor on the device.
     """
-    dev = resolve_device(device)
-    vis4 = torch.as_tensor(vis4).to(device=dev, dtype=torch.complex64)
-    if vis4.ndim != 4 or vis4.shape[1] != 4:
-        raise ValueError(f"Expected (B, 4, C, T) 4-pol waterfalls, got {tuple(vis4.shape)}")
-    b, _, c, t = vis4.shape
-    preds = torch.as_tensor(predictor(coherent_images(vis4, patch_size)), device=dev)
-    preds = preds if preds.dtype == torch.bool else preds > threshold
-    return P.unpatchify_batch(preds, b, c, t)
+    with span("coherent.call"):
+        dev = resolve_device(device)
+        vis4 = torch.as_tensor(vis4).to(device=dev, dtype=torch.complex64)
+        if vis4.ndim != 4 or vis4.shape[1] != 4:
+            raise ValueError(f"Expected (B, 4, C, T) 4-pol waterfalls, got {tuple(vis4.shape)}")
+        b, _, c, t = vis4.shape
+        images = coherent_images(vis4, patch_size)
+        with span("coherent.predict"):
+            preds = torch.as_tensor(predictor(images), device=dev)
+        preds = preds if preds.dtype == torch.bool else preds > threshold
+        with span("coherent.unpatchify"):
+            return P.unpatchify_batch(preds, b, c, t)
 
 
 def coherent_images(vis4, patch_size):
     """(B, 4, C, T) complex64 -> (B * N, p, p, 8) float32 robust-scaled
     patches, N patches a plane in ``patchify_batch``'s order
-    (flagging.py:184-222)."""
-    b, _, c, t = vis4.shape
-    p = patch_size
-    patches = P.patchify_batch(vis4.reshape(b * 4, c, t), p)  # (b * 4 * N, p, p)
-    n = patches.shape[0] // (b * 4)
-    x = to_8ch(patches.reshape(b, 4, n, p, p).transpose(1, 2)).reshape(b * n, p, p, 8)
-    valid = None
-    if c % p or t % p:
-        # edge patches hold patchify's zero padding; it stays out of the
-        # median and the quartiles (q25 would pin to 0 past 25% padding)
-        ones = torch.ones((1, c, t), device=vis4.device)
-        valid = (P.patchify_batch(ones, p) > 0).repeat(b, 1, 1)[..., None]
-    return robust_scale(x, valid)
+    (flagging.py:184-222), in the ``coherent.images`` span; the robust
+    scale in ``coherent.scale`` inside it."""
+    with span("coherent.images"):
+        b, _, c, t = vis4.shape
+        p = patch_size
+        patches = P.patchify_batch(vis4.reshape(b * 4, c, t), p)  # (b * 4 * N, p, p)
+        n = patches.shape[0] // (b * 4)
+        x = to_8ch(patches.reshape(b, 4, n, p, p).transpose(1, 2)).reshape(b * n, p, p, 8)
+        valid = None
+        if c % p or t % p:
+            # edge patches hold patchify's zero padding; it stays out of the
+            # median and the quartiles (q25 would pin to 0 past 25% padding)
+            ones = torch.ones((1, c, t), device=vis4.device)
+            valid = (P.patchify_batch(ones, p) > 0).repeat(b, 1, 1)[..., None]
+        with span("coherent.scale"):
+            return robust_scale(x, valid)
 
 
 @contextlib.contextmanager

@@ -19,13 +19,21 @@ name):
 - ``flag.call`` (a ``flag_waterfalls`` call) > ``flag.patchify``,
   ``flag.mad`` (K5), ``flag.extract`` (K4), ``flag.predict`` (the
   predictor), ``flag.unpatchify``;
+- ``coherent.call`` (a ``flag_waterfalls_coherent`` call) >
+  ``coherent.images`` (``coherent_images``: patchify, ``to_8ch`` and the
+  robust scale) > ``coherent.scale`` (the robust scale alone);
+  ``coherent.call`` > ``coherent.predict`` (the predictor),
+  ``coherent.unpatchify``;
 - ``predict`` (a ``CompiledPredictor`` call) > ``predict.logits`` (the
   model's forward on one batch);
 - ``prep.base``, ``prep.select``, ``prep.extract`` (static prep: base
   patches and flags, the selection, labels and images by K1 and K3);
 - ``train.step`` > ``train.forward`` (logits and loss),
   ``train.backward`` (gradients, summed over the group on a mesh),
-  ``train.optimizer`` (clip and AdamW);
+  ``train.optimizer`` (clip and AdamW); a step that replays
+  ``train_steps``' CUDA graph: ``train.step`` > ``train.replay`` (the
+  inputs' copies and the graph of the forward and backward),
+  ``train.optimizer``;
 - ``ms.load``, ``ms.to_card``, ``ms.card``, ``ms.to_host``, ``ms.save``
   (the stages of ``flag_measurement_set``; its ``timings=``).
 

@@ -24,7 +24,8 @@ def _port_files():
                                          ROOT / "tools" / "torch_train_profile.py",
                                          ROOT / "tools" / "conv_library_kernels.py",
                                          ROOT / "tools" / "instance_grad_float64.py",
-                                         ROOT / "tests" / "torch_parallel_ranks.py"]
+                                         ROOT / "tests" / "torch_parallel_ranks.py",
+                                         ROOT / "tests" / "plain_coherent.py"]
 
 
 def test_import_leaves_jax_out():
