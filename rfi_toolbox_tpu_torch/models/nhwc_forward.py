@@ -23,6 +23,10 @@ XLA ops, without a Pallas kernel; the plain PyTorch ops here are their
 counterpart. On the CPU ``conv3x3_call`` runs its plain version, so the
 same code runs there. Later changes to the model's parameters are not
 seen: the weights are copies. Importing this module sets nothing.
+
+:class:`~.nhwc_groupnorm.GroupNormNHWCForward` (route ``"k7_nhwc"``) is
+this skeleton with another block: it overrides ``norm``, ``_double`` and
+``_double_conv`` alone, so pool, up-convs and head are these.
 """
 
 import torch
@@ -48,11 +52,6 @@ def _bias(module):
     return _copy(module.bias)
 
 
-def _double(block):
-    return ((_hwio(block.conv1), _bias(block.conv1)),
-            (_hwio(block.conv2), _bias(block.conv2)))
-
-
 def _up(conv):
     """(Ci, 4*Co) weights, columns in (dy, dx, co) order, and the bias
     repeated to match, of a 2x2 stride-2 transposed conv."""
@@ -63,24 +62,31 @@ def _up(conv):
 class NHWCForward:
     """The forward of a covered UNet on (B, H, W, C) images -> (B, H, W)
     float32 logits (the first output channel), in the ``predict.nhwc``
-    span. Call it under ``torch.inference_mode()``."""
+    span. Call it under ``torch.inference_mode()``.
 
-    @staticmethod
-    def covers(model):
+    The skeleton (pool, up-convs, head) is shared with the GroupNorm
+    forward (:class:`~.nhwc_groupnorm.GroupNormNHWCForward`), which takes
+    another ``norm`` and its own block: ``_double`` takes a DoubleConv's
+    weights, ``_double_conv`` runs it."""
+
+    norm = "none"
+
+    @classmethod
+    def covers(cls, model):
         """Whether ``model`` is a UNet this forward computes: float32,
-        ``norm="none"``, ReLU, no space-to-depth, no final sigmoid."""
-        return (isinstance(model, UNet) and model.norm == "none"
+        ``norm`` as the class's, ReLU, no space-to-depth, no final sigmoid."""
+        return (isinstance(model, UNet) and model.norm == cls.norm
                 and model.dtype == torch.float32 and model.activation is torch.relu
                 and not model.space_to_depth and not model.final_sigmoid)
 
     @torch.no_grad()
     def __init__(self, model):
         if not self.covers(model):
-            raise ValueError("NHWCForward takes a float32 norm='none' ReLU UNet "
-                             "without space-to-depth or a final sigmoid")
-        self.encoders = [_double(enc.block) for enc in model.encoders]
-        self.bottleneck = _double(model.bottleneck)
-        self.decoders = [(_up(dec.up), _double(dec.block)) for dec in model.decoders]
+            raise ValueError(f"{type(self).__name__} takes a float32 norm={self.norm!r} ReLU "
+                             "UNet without space-to-depth or a final sigmoid")
+        self.encoders = [self._double(enc.block) for enc in model.encoders]
+        self.bottleneck = self._double(model.bottleneck)
+        self.decoders = [(_up(dec.up), self._double(dec.block)) for dec in model.decoders]
         self.head = _copy(model.head.weight[0, :, 0, 0]), _bias(model.head)[:1]
 
     def __call__(self, images):
@@ -88,20 +94,25 @@ class NHWCForward:
             x = images.to(torch.float32).contiguous()
             skips = []
             for block in self.encoders:
-                skip = _double_conv(x, block)
+                skip = self._double_conv(x, block)
                 skips.append(skip)
                 x = F.max_pool2d(skip.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1).contiguous()
-            x = _double_conv(x, self.bottleneck)
+            x = self._double_conv(x, self.bottleneck)
             for (up, block), skip in zip(self.decoders, reversed(skips)):
-                x = _double_conv(_up_and_concat(x, up, skip), block)
+                x = self._double_conv(_up_and_concat(x, up, skip), block)
             w, b = self.head
             n, h, wd, c = x.shape
             return torch.addmv(b, x.view(-1, c), w).view(n, h, wd)
 
+    @staticmethod
+    def _double(block):
+        return ((_hwio(block.conv1), _bias(block.conv1)),
+                (_hwio(block.conv2), _bias(block.conv2)))
 
-def _double_conv(x, block):
-    (w1, b1), (w2, b2) = block
-    return conv3x3_call(conv3x3_call(x, w1, b1, relu=True), w2, b2, relu=True)
+    @staticmethod
+    def _double_conv(x, block):
+        (w1, b1), (w2, b2) = block
+        return conv3x3_call(conv3x3_call(x, w1, b1, relu=True), w2, b2, relu=True)
 
 
 def _up_and_concat(x, up, skip):

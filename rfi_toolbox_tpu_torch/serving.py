@@ -8,14 +8,25 @@ off), and every request is still cut into chunks of exactly
 same shape.
 
 The forward's route (``CompiledPredictor.route``) follows from the model
-after folding. A float32 ``norm="none"`` UNet with ReLU, no space-to-depth
-and no final sigmoid (a folded BatchNorm UNet, such as the shipped
-``unet16_synthetic.npz``) runs ``"k6a_nhwc"``: the channels-last forward
-of :mod:`.models.nhwc_forward`, its 3x3 convs on K6a with bias and ReLU
-fused, built once at construction, in the ``predict.nhwc`` span inside
-``predict.logits``. Every other model (GroupNorm, another activation,
-space-to-depth, ``UNetOverfit``, bfloat16, an unfolded BatchNorm) runs
-``"eager"``: the model's own NCHW forward, as before.
+after folding; both channels-last routes need a float32 UNet with ReLU,
+no space-to-depth and no final sigmoid, and are built once at
+construction and run in the ``predict.nhwc`` span inside
+``predict.logits``:
+
+- ``"k6a_nhwc"``, for ``norm="none"`` (a folded BatchNorm UNet, such as
+  the shipped ``unet16_synthetic.npz``): :mod:`.models.nhwc_forward`, its
+  3x3 convs on K6a with bias and ReLU fused;
+- ``"k7_nhwc"``, for ``norm="group"`` (the GroupNorm snapshots:
+  ``unet16gn_coherent8ch``, ``unet24gn_coherent8ch``,
+  ``unet32gn_coherent8ch``, ``unet16gn_universal``):
+  :mod:`.models.nhwc_groupnorm`, each DoubleConv one K7 call with both
+  GroupNorms and ReLUs. It subclasses the first and overrides its block
+  alone: GroupNorm's statistics span the image and cannot be folded into
+  the convs, so the block differs; pool, up-convs and head are shared.
+
+Every other model (another activation, space-to-depth, ``UNetOverfit``,
+bfloat16, an unfolded BatchNorm) runs ``"eager"``: the model's own NCHW
+forward.
 
 >>> from rfi_toolbox_tpu_torch.serving import CompiledPredictor
 >>> pred = CompiledPredictor.from_snapshot("pretrained/unet16_synthetic.npz")
@@ -30,10 +41,14 @@ from torch.utils.flop_counter import FlopCounterMode
 from .models.convert import unet_from_snapshot
 from .models.folding import fold_batchnorm
 from .models.nhwc_forward import NHWCForward
+from .models.nhwc_groupnorm import GroupNormNHWCForward
 from .utils.device import resolve_device, set_tf32
 from .utils.profiling import span
 
 __all__ = ["CompiledPredictor", "predict_mask"]
+
+# the channels-last routes by name; their ``covers`` take disjoint models
+_NHWC_ROUTES = {"k6a_nhwc": NHWCForward, "k7_nhwc": GroupNormNHWCForward}
 
 
 def predict_mask(logits_fn, images, threshold, tta=False):
@@ -71,12 +86,13 @@ class CompiledPredictor:
         device: ``None`` for the CUDA card, or e.g. ``"cpu"``.
 
     ``route`` is ``"k6a_nhwc"`` where the model after folding is one
-    :class:`~.models.nhwc_forward.NHWCForward` covers, else ``"eager"``
-    (module docstring).
+    :class:`~.models.nhwc_forward.NHWCForward` covers, ``"k7_nhwc"``
+    where :class:`~.models.nhwc_groupnorm.GroupNormNHWCForward` covers it,
+    else ``"eager"`` (module docstring).
 
     The predictor serves the model as it is at construction, on every
-    route: treat ``model`` as read-only from then on. The ``"k6a_nhwc"``
-    route forwards copies of its weights taken at construction; to serve
+    route: treat ``model`` as read-only from then on. The channels-last
+    routes forward copies of its weights taken at construction; to serve
     other weights, build a new predictor.
     """
 
@@ -94,8 +110,9 @@ class CompiledPredictor:
         if self.device.type == "cuda":
             set_tf32(False)
         self.model = model.to(self.device).eval()
-        self._nhwc = NHWCForward(self.model) if NHWCForward.covers(self.model) else None
-        self.route = "eager" if self._nhwc is None else "k6a_nhwc"
+        self.route = next((name for name, forward in _NHWC_ROUTES.items()
+                           if forward.covers(self.model)), "eager")
+        self._nhwc = _NHWC_ROUTES[self.route](self.model) if self.route in _NHWC_ROUTES else None
 
     @classmethod
     def from_snapshot(cls, path, model=None, device=None, **kwargs):

@@ -1,6 +1,6 @@
 """The port's coherent flagging path (``flag_waterfalls_coherent``,
 ``coherent_images``, a GroupNorm UNet through ``CompiledPredictor``'s
-``"eager"`` route) against the plain reference ``tests/plain_coherent.py``
+``"k7_nhwc"`` route) against the plain reference ``tests/plain_coherent.py``
 (plain torch, no kernel or module of the port), on the CPU at a small
 size with seeded random weights; and the path's ``coherent.*`` spans.
 
@@ -95,7 +95,7 @@ def _case(shape):
     thr = float(torch.sigmoid(ref_logits.median()))
     pred = CompiledPredictor(model, input_shape=(P, P, 8), batch_size=BATCH, threshold=thr,
                              device="cpu")
-    assert pred.route == "eager" and not pred.folded
+    assert pred.route == "k7_nhwc" and not pred.folded
     got_images = coherent_images(vis4, P)
     got_logits = torch.cat([pred.logits(got_images[i:i + BATCH])
                             for i in range(0, got_images.shape[0], BATCH)])
@@ -164,7 +164,8 @@ def test_the_coherent_spans_nest_under_one_tag():
                              ("coherent.scale", "coherent.images"),
                              ("coherent.predict", "coherent.call"),
                              ("predict", "coherent.predict")]
-                            + [("predict.logits", "predict")] * n_forwards
+                            + [("predict.logits", "predict"),
+                               ("predict.nhwc", "predict.logits")] * n_forwards
                             + [("coherent.unpatchify", "coherent.call")])
     assert len({s.tag for s in rec.spans}) == 1
     assert all(s.end is not None and s.end >= s.start for s in rec.spans)
